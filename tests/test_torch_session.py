@@ -1,0 +1,234 @@
+"""The port's Session facade against the reference's, end to end.
+
+The same numpy inputs go into ``repro.Session(engine="pallas")`` (Pallas
+kernel bodies in interpret mode, n <= 128) and into
+``repro_torch.Session(engine=TorchEngine(device="cpu"))`` (the kernels'
+plain PyTorch versions).  State crosses as plain numpy: both packages take
+numpy arrays, and their leaves are numpy blocks, compared block by block
+through :func:`leaves_of`.
+"""
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro  # noqa: E402
+import repro_torch  # noqa: E402
+from repro.core.patterns import (banded_mask, divide_space_order,  # noqa: E402
+                                 overlap_mask, particle_cloud, random_mask,
+                                 values_for_mask)
+from repro_torch.core.engine import (NumpyEngine, TorchEngine,  # noqa: E402
+                                     make_engine)
+from test_torch_engine import leaves  # noqa: E402
+
+N, LEAF_N, BS = 64, 16, 4
+ATOL = 1e-3
+
+
+def leaves_of(matrix) -> dict:
+    """Every stored leaf block of a matrix, keyed by ``(path, key)``.
+
+    ``path`` is the quadrant path from the root (0..3 row-major), ``key``
+    the block's (row, col) inside its leaf.  Works on both packages'
+    matrices (their leaves are host numpy), which is how state is compared
+    across them.
+    """
+    return leaves(matrix.session.graph, matrix.node)
+
+
+def _sessions(**kw):
+    return (repro.Session(engine="pallas", leaf_n=LEAF_N, bs=BS, **kw),
+            repro_torch.Session(engine=TorchEngine(device="cpu"),
+                                leaf_n=LEAF_N, bs=BS, **kw))
+
+
+def _s2(n=N):
+    coords = particle_cloud(4, 3, seed=7)
+    m = overlap_mask(coords, 4.0, order=divide_space_order(coords))
+    return values_for_mask(m, seed=1, symmetric=True)
+
+
+INPUTS = {
+    "banded": lambda s: values_for_mask(banded_mask(N, 5), seed=s),
+    "random": lambda s: values_for_mask(random_mask(N, 0.1, seed=s), seed=s),
+    "s2": lambda s: values_for_mask(_s2() != 0, seed=s),
+}
+
+
+def _assert_same(ref_sess, ref_m, port_sess, port_m, want=None):
+    assert port_sess.task_counts() == ref_sess.task_counts()
+    assert port_sess.tasks_per_level() == ref_sess.tasks_per_level()
+    assert port_sess.n_multiply_tasks == ref_sess.n_multiply_tasks
+    assert port_sess.n_add_tasks == ref_sess.n_add_tasks
+    assert port_sess.flops == ref_sess.flops
+    kinds = [n.kind for n in port_sess.graph.nodes]
+    assert kinds == [n.kind for n in ref_sess.graph.nodes]
+    rl, pl = leaves_of(ref_m), leaves_of(port_m)
+    assert pl.keys() == rl.keys()
+    for k in rl:
+        np.testing.assert_allclose(pl[k], rl[k], atol=ATOL)
+    ws = [[{k: v for k, v in w.items() if k != "wall_s"}
+           for w in s.engine_stats()["wave_log"]]
+          for s in (ref_sess, port_sess)]
+    assert ws[1] == ws[0]
+    if want is not None:
+        np.testing.assert_allclose(port_m.to_dense(), want, atol=ATOL)
+
+
+@pytest.mark.pallas
+class TestAgainstPallasSession:
+    @pytest.mark.parametrize("pattern", sorted(INPUTS))
+    def test_matmul(self, pattern):
+        a, b = INPUTS[pattern](1), INPUTS[pattern](2)
+        (rs, ps) = _sessions()
+        rc = rs.from_dense(a) @ rs.from_dense(b)
+        pc = ps.from_dense(a) @ ps.from_dense(b)
+        _assert_same(rs, rc, ps, pc, a @ b)
+
+    def test_transposed_matmul(self):
+        a, b = INPUTS["random"](3), INPUTS["banded"](4)
+        rs, ps = _sessions()
+        rc = rs.from_dense(a).T @ rs.from_dense(b)
+        pc = ps.from_dense(a).T @ ps.from_dense(b)
+        _assert_same(rs, rc, ps, pc, a.T @ b)
+
+    def test_sym_square(self):
+        s = _s2()
+        rs, ps = _sessions()
+        rc = rs.from_dense(s, upper=True).sym_square()
+        pc = ps.from_dense(s, upper=True).sym_square()
+        assert pc.upper
+        _assert_same(rs, rc, ps, pc, s @ s)
+
+    def test_add_and_scale(self):
+        a, b = INPUTS["banded"](5), INPUTS["random"](6)
+        rs, ps = _sessions()
+        rc = 2.5 * (rs.from_dense(a) @ rs.from_dense(b)) + rs.from_dense(b)
+        pc = 2.5 * (ps.from_dense(a) @ ps.from_dense(b)) + ps.from_dense(b)
+        _assert_same(rs, rc, ps, pc, 2.5 * (a @ b) + b)
+
+    def test_lazy_plan_replay_registers_nothing(self):
+        x0, x1 = INPUTS["banded"](7), INPUTS["banded"](8)   # one structure
+        rs, ps = _sessions(lazy=True)
+        outs = []
+        for sess in (rs, ps):
+            X = sess.from_dense(x0, name="X")
+            plan = sess.compile(X @ X + X)
+            np.testing.assert_allclose(plan.run().to_dense(), x0 @ x0 + x0,
+                                       atol=ATOL)
+            n_tasks = len(sess.graph.nodes)
+            Z = plan.run(X=x1)
+            assert len(sess.graph.nodes) == n_tasks     # zero new tasks
+            outs.append((sess, Z))
+        _assert_same(outs[0][0], outs[0][1], outs[1][0], outs[1][1],
+                     x1 @ x1 + x1)
+
+    def test_truncated_multiply_frozen_pairs(self):
+        idx = np.arange(N)
+        rng = np.random.default_rng(8)
+        decay = np.exp(-0.4 * np.abs(idx[:, None] - idx[None, :]))
+        a, a2 = (decay * rng.standard_normal((N, N)) for _ in range(2))
+        rs, ps = _sessions(lazy=True)
+        res = []
+        for sess in (rs, ps):
+            X = sess.from_dense(a, name="X")
+            plan = sess.compile(X.multiply(X, tau=1e-2))
+            C = plan.run()
+            err = np.linalg.norm(C.to_dense() - a @ a)
+            assert 0.0 < err <= C.error_bound
+            n_tasks = len(sess.graph.nodes)
+            C2 = plan.run(X=a2)       # replays the frozen pair lists
+            assert len(sess.graph.nodes) == n_tasks
+            res.append((sess, C2, C.error_bound))
+        assert res[1][2] == res[0][2]
+        _assert_same(res[0][0], res[0][1], res[1][0], res[1][1])
+
+
+def test_leaves_match_numpy_engine_n256():
+    rng = np.random.default_rng(9)
+    a = values_for_mask(banded_mask(256, 20), seed=10)
+    b = np.where(rng.random((256, 256)) < 0.05,
+                 rng.standard_normal((256, 256)), 0.0)
+    out = []
+    for eng in (NumpyEngine(), TorchEngine(device="cpu")):
+        sess = repro_torch.Session(engine=eng, leaf_n=64, bs=8)
+        c = sess.from_dense(a) @ sess.from_dense(b).T
+        out.append((sess.task_counts(), leaves_of(c)))
+    assert out[1][0] == out[0][0]
+    assert out[1][1].keys() == out[0][1].keys()
+    for k, blk in out[0][1].items():
+        np.testing.assert_allclose(out[1][1][k], blk, atol=ATOL)
+
+
+class TestFacadeContract:
+    @pytest.mark.parametrize("spec", ["pallas", "mesh", "cuda", 42, None])
+    def test_reference_engine_names_rejected(self, spec):
+        with pytest.raises(ValueError, match="unknown leaf engine"):
+            repro_torch.Session(engine=spec)
+
+    def test_engine_torch_needs_cuda(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        sess = repro_torch.Session(engine="torch", leaf_n=16, bs=4)
+        a = sess.from_dense(np.eye(32))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            a @ a
+
+    def test_default_engine_is_the_card(self, monkeypatch):
+        """``Session()`` runs on the card; without CUDA it raises and
+        names the CPU opt-in instead of falling back to the host."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        sess = repro_torch.Session(leaf_n=16, bs=4)
+        assert "engine='torch'" in repr(sess)
+        a = sess.from_dense(np.eye(32))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            a @ a
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make_engine(None)
+
+    def test_simulator_not_ported(self):
+        sess = repro_torch.Session(engine="numpy", leaf_n=16, bs=4)
+        sess.from_dense(np.eye(32))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sess.simulate(p=4)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            sess.reset_stats()
+
+    def test_metrics_source(self):
+        sess = repro_torch.Session(engine=TorchEngine(device="cpu"),
+                                   leaf_n=16, bs=4)
+        a = sess.from_dense(np.eye(32))
+        (a @ a).to_dense()
+        (ms,) = sess.metrics()
+        assert ms.source == "engine:torch"
+
+
+def test_port_imports_neither_jax_nor_repro():
+    """A whole CPU ``A @ B`` session loads no jax and no ``repro`` module."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        import repro_torch
+        from repro_torch.core.engine import TorchEngine
+        sess = repro_torch.Session(engine=TorchEngine(device="cpu"),
+                                   leaf_n=16, bs=4)
+        a = np.triu(np.tril(np.ones((64, 64)), 3), -3)
+        c = (sess.from_dense(a) @ sess.from_dense(a).T).to_dense()
+        assert np.allclose(c, a @ a.T, atol=1e-4)
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith(("jax.", "jaxlib"))
+               or m == "repro" or m.startswith("repro.")]
+        assert not bad, bad
+        print("clean")
+    """)
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "clean"
