@@ -22,12 +22,32 @@ through the entry points a user calls, on the card:
              keys must equal the boolean product of the block masks, and
              256 sampled C blocks must match float64 sums built from the
              same input data (rtol 1e-5 in the Frobenius norm).
+lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
+             (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
+             window 4096, bf16), weights from ``init_params`` with a
+             seeded generator on the card.  The attention kernel against
+             its plain version at small shapes (float32 and bfloat16,
+             causal and bidirectional); the smoke config's prefill on the
+             card against the same prefill on the CPU; a prefill of
+             1 x 32768 seeded tokens (the ``prefill_32k`` shape with the
+             batch cut from 32 to 1), which must launch ``banded_attention``
+             once per layer and give finite logits; the kernel against its
+             plain version on layer 0's real q, k, v, head by head, and its
+             time beside its bound, the plain version's and
+             ``scaled_dot_product_attention`` with a band mask (a yardstick
+             the port never calls); ``lm_serve.generate`` at batch 4,
+             prompt 32, gen 16, every token in [0, vocab).  The attention
+             kernel is held element by element against the plain version's
+             float32 result: float32 atol 1e-4, bfloat16 2**-8 |want| +
+             1e-3 rms(want); on layer 0 the plain version with the band one
+             64-key tile short must fail that check.
 4. report  — per phase the engine's wave stats and launch counts; per
              kernel its time on the card at the main path's largest wave
              (CUDA events), its bound, the plain version's time and the
-             ``torch.bmm`` yardstick's; the card's name and power limit.
-             Each kernel is also held against its plain version on that
-             same wave, at the tolerance of phase 2.
+             library yardstick's (``torch.bmm``, ``scaled_dot_product_
+             attention``); the card's name and power limit.  Each kernel
+             is also held against its plain version on that same wave, at
+             the tolerance of phase 2.
 
 Any failed check raises and the script exits non-zero.  Without a CUDA
 device, or without the package beside it, it prints no result and exits
@@ -47,13 +67,18 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FMA outside
-#: the tensor cores in FLOP/s
+#: the tensor cores and dense bf16 tensor cores in FLOP/s
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 
 #: the TPU kernel each CUDA kernel replaces (pl.pallas_call sites)
 REPLACES = {"bsmm_pairs": "src/repro/kernels/bsmm_pairs.py:78",
-            "batched_gemm": "src/repro/kernels/batched_gemm.py:52"}
+            "batched_gemm": "src/repro/kernels/batched_gemm.py:52",
+            "banded_attention": "src/repro/kernels/block_attention.py:102"}
+#: row name -> the launch counter (and csrc/ source) of its kernel
+COUNTER = {"bsmm_pairs": "bsmm_pairs", "batched_gemm": "batched_gemm",
+           "banded_attention": "block_attention"}
 
 LEAF_N, BS = 2048, 32
 N_SAMPLE = 256
@@ -85,8 +110,9 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = n_bytes / HBM_BPS, flops / FP32_FLOPS
+def bound_ms(n_bytes: float, flops: float,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
+    tb, tf = n_bytes / HBM_BPS, flops / peak
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -285,24 +311,30 @@ def check_result(sp, name, blocks, a64, b64, n, bs, upper, seed) -> dict:
 
 
 class Capture:
-    """Keep the inputs of the largest call of each kernel wrapper of
+    """Keep the inputs of one call of each named kernel wrapper of
     :mod:`repro_torch.kernels.ops` while a main-path run goes through it,
-    so that the report times each kernel at the shapes the path gave it."""
+    so that the report times each kernel at the shapes the path gave it:
+    the largest wave of a multiply kernel, the first call (layer 0) of
+    ``banded_attention``, whose calls all have one shape."""
 
-    def __init__(self, ops):
+    #: wrapper -> size of a call (the largest is kept), or None: keep the first
+    SIZE = {"bsmm_pairs": lambda args: args[2].shape[0],
+            "batched_gemm": lambda args: args[0].shape[0],
+            "banded_attention": None}
+
+    def __init__(self, ops, names=("bsmm_pairs", "batched_gemm")):
         self.ops = ops
         self.calls: dict[str, tuple] = {}
-        self._orig = {k: getattr(ops, k) for k in ("bsmm_pairs",
-                                                   "batched_gemm")}
+        self._orig = {k: getattr(ops, k) for k in names}
 
     def __enter__(self):
         def wrap(name):
-            orig = self._orig[name]
+            orig, size_of = self._orig[name], self.SIZE[name]
 
             def fn(*args, **kw):
-                size = args[2].shape[0] if name == "bsmm_pairs" \
-                    else args[0].shape[0]
-                if size >= self.calls.get(name, (-1,))[0]:
+                size = size_of(args) if size_of else 0
+                if name not in self.calls or (
+                        size_of and size >= self.calls[name][0]):
                     self.calls[name] = (size, args, kw)
                 return orig(*args, **kw)
             return fn
@@ -477,11 +509,317 @@ def main_path(torch, ops, ref, launches) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase lm: the LM substrate at full width
+# ---------------------------------------------------------------------------
+
+LM_ARCH = "h2o_danube3_4b"
+#: prefill (batch, tokens): prefill_32k with the batch cut from 32 to 1
+LM_PREFILL = (1, 32768)
+#: serve (batch, prompt, gen): the reference lm_serve CLI's defaults
+LM_SERVE = (4, 32, 16)
+
+
+#: a kernel whose band is one 64-key tile short must fail the check
+SHORT_BY = 64
+
+
+def plain32(ref, q, k, v, window, causal):
+    """The plain version's float32 result, before its cast to q's type."""
+    return ref.banded_attention_ref(q.float(), k.float(), v.float(), window,
+                                    causal=causal)
+
+
+def check_attention(torch, what, got, want32) -> float:
+    """Each element of the kernel's output against the plain version's
+    float32 result ``want32`` on the same inputs; returns the max abs
+    error and raises on a miss.
+
+    float32: atol 1e-4 (both sum in float32, in other orders).
+    bfloat16: |got - want32| <= 2**-8 |want32| + 1e-3 rms(want32).  The
+    kernel keeps float32 inside and rounds once, at the output, which
+    moves a value by at most half a bf16 ulp, 2**-8 of it; 1e-3 of the
+    output's rms covers the float32 sums taken in another order.  A
+    missing kv tile or a wrong window edge moves outputs by far more."""
+    if got.shape != want32.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want32.shape)}")
+    diff = (got.float() - want32).abs()
+    if got.numel() == 0:
+        return 0.0
+    if got.dtype == torch.float32:
+        tol, rule = torch.full_like(want32, 1e-4), "atol 1e-4"
+    else:
+        rms = float(want32.pow(2).mean().sqrt())
+        tol = 2 ** -8 * want32.abs() + 1e-3 * rms
+        rule = f"2**-8 |want| + 1e-3 rms(want), rms {rms:.4g}"
+    excess = (diff - tol).flatten()
+    i = int(excess.argmax())
+    if float(excess[i]) > 0:
+        raise AssertionError(
+            f"{what}: |got - want| {float(diff.flatten()[i]):.4g} > "
+            f"tolerance {float(tol.flatten()[i]):.4g} ({rule}) at flat index "
+            f"{i}; max abs err {float(diff.max()):.4g}")
+    return float(diff.max())
+
+
+def check_attention_small(torch, ops, ref) -> float:
+    """The attention kernel against its plain version at small shapes;
+    returns the worst error."""
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for h, s, d, window, block in ((4, 512, 120, 128, 64),
+                                           (3, 96, 16, 32, 32),
+                                           (2, 160, 160, 64, 32)):
+                q, k, v = (torch.tensor(rng.standard_normal((h, s, d)),
+                                        dtype=dtype, device="cuda")
+                           for _ in range(3))
+                got = ops.banded_attention(q, k, v, window=window,
+                                           block_q=block, block_kv=block,
+                                           causal=causal)
+                torch.cuda.synchronize()
+                if got.dtype != dtype:
+                    raise AssertionError(f"banded_attention gave {got.dtype}"
+                                         f" for {dtype}")
+                err = check_attention(
+                    torch, f"banded_attention {(h, s, d)} window={window} "
+                    f"causal={causal} {dtype}", got,
+                    plain32(ref, q, k, v, window, causal))
+                worst = max(worst, err)
+                log(f"  banded_attention H={h} S={s:4d} D={d:3d} "
+                    f"window={window:3d} causal={causal!s:5s} "
+                    f"{str(dtype):14s} max_abs_err={err:.3g}")
+    return worst
+
+
+def band_pairs(s: int, window: int, causal: bool) -> int:
+    """(query, key) pairs inside the band of an S x S score matrix."""
+    i = np.arange(s, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0)
+    hi = i if causal else np.minimum(i + window - 1, s - 1)
+    return int((hi - lo + 1).sum())
+
+
+def time_attention(torch, ref, q, k, v, window, causal) -> dict:
+    """The kernel on layer 0's real q, k, v: held against its plain
+    version head by head (so that one head's S x S scores fit), then
+    timed beside its bound, the plain version (all heads, head by head)
+    and ``scaled_dot_product_attention`` with a band mask."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import block_attention as kba
+
+    h, s, d = q.shape
+    kern = lambda: kba.banded_attention(q, k, v, window=window,  # noqa: E731
+                                        causal=causal)
+    out = kern()
+    if out.dtype != q.dtype:
+        raise AssertionError(f"banded_attention gave {out.dtype} for "
+                             f"{q.dtype}")
+    err = 0.0
+    for i in range(h):
+        want32 = plain32(ref, q[i:i + 1], k[i:i + 1], v[i:i + 1], window,
+                         causal)
+        err = max(err, check_attention(
+            torch, f"banded_attention on layer 0, head {i}", out[i:i + 1],
+            want32))
+        if i == 0:
+            # the check's power: the plain version with the band one kv
+            # tile short, rounded like the kernel, must miss it
+            short = ref.banded_attention_ref(
+                q[:1], k[:1], v[:1], window - SHORT_BY, causal=causal)
+            try:
+                check_attention(torch, "band one tile short", short, want32)
+            except AssertionError as e:
+                log(f"    the band {SHORT_BY} keys short fails the check, "
+                    f"as it must: {e}")
+            else:
+                raise AssertionError(
+                    f"banded_attention check on layer 0 passes a band "
+                    f"{SHORT_BY} keys short: the tolerance is too loose")
+            del short
+        del want32
+    del out
+
+    def plain():
+        for i in range(h):
+            ref.banded_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     window, causal=causal)
+
+    pairs = band_pairs(s, window, causal)
+    flops = 4.0 * d * pairs * h                 # q k^T and p v
+    n_bytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
+    peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
+    bms, by = bound_ms(n_bytes, flops, peak)
+    res = {"ms": cuda_ms(torch, kern, reps=5, warmup=1),
+           "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+           "bytes": n_bytes, "flops": flops, "band_pairs_per_head": pairs,
+           "shape": {"heads": h, "seq": s, "head_dim": d, "window": window,
+                     "causal": causal, "dtype": str(q.dtype)}}
+    # the yardstick at the largest S that fits, down to S / 8; the
+    # kernels row carries it only when it ran at the kernel's S
+    res["library_ms"] = res["library_seq"] = res["library_ms_at_seq"] = None
+    n = s
+    while n >= s // 8:
+        try:
+            mask = ref.band_mask(n, window, causal, device=q.device)
+            qs, ks, vs = (t[None, :, :n] for t in (q, k, v))
+            res["library_ms_at_seq"] = cuda_ms(
+                torch, lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask), reps=3, warmup=1)
+            res["library_seq"] = n
+            if n == s:
+                res["library_ms"] = res["library_ms_at_seq"]
+            break
+        except RuntimeError as e:          # out of memory: halve S
+            log(f"    sdpa at S={n}: {type(e).__name__}: "
+                f"{str(e).splitlines()[0][:200]}")
+            n //= 2
+        finally:
+            mask = qs = ks = vs = None
+            torch.cuda.empty_cache()
+    return res
+
+
+def gqa_expand_ms(torch, k, v, kv_heads) -> float:
+    """Device time of ``windowed_attention``'s copy of k and v over the
+    query heads of each group, from the (B, S, KV, hd) layout."""
+    h, s, d = k.shape
+    g = h // kv_heads
+
+    def orig(t):                       # (H, S, hd) -> (1, S, KV, hd)
+        return t.view(kv_heads, g, s, d)[:, 0].permute(1, 0, 2)[None] \
+            .contiguous()
+
+    ko, vo = orig(k), orig(v)
+
+    def expand():
+        for t in (ko, vo):
+            t[:, :, :, None].expand(1, s, kv_heads, g, d) \
+                .permute(0, 2, 3, 1, 4).reshape(h, s, d)
+    return cuda_ms(torch, expand, reps=5)
+
+
+def lm_phase(torch, ops, ref, launches) -> dict:
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import model as M
+
+    out = {"kernel_small_max_abs_err": check_attention_small(torch, ops,
+                                                             ref)}
+
+    # the smoke config's window-path prefill: card against CPU
+    small = get_smoke_config(LM_ARCH)
+    p_cpu = M.init_params(small, torch.Generator().manual_seed(0),
+                          device="cpu")
+    p_gpu = {k: ({n: w.cuda() for n, w in v.items()}
+                 if isinstance(v, dict) else v.cuda())
+             for k, v in p_cpu.items()}
+    toks = torch.tensor(np.random.default_rng(2).integers(
+        0, small.vocab, (2, 64)))
+    with torch.inference_mode():
+        want, _ = M.forward(small, p_cpu, {"tokens": toks})
+        got, _ = M.forward(small, p_gpu, {"tokens": toks.cuda()})
+    err = float((got.cpu() - want).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"smoke prefill: card vs CPU max abs err {err}")
+    out["smoke_prefill_card_vs_cpu_err"] = err
+    log(f"  smoke prefill (S=64 > window 32): card vs CPU max abs err "
+        f"{err:.3g}")
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["params"] = sum(w.numel() for v in params.values()
+                        for w in (v.values() if isinstance(v, dict) else [v]))
+    b, s = LM_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        # warm-up (cuBLAS handles, the allocator, the kernel) at a quarter
+        # of S, still on the window path, off the counted run
+        M.forward(cfg, params, {"tokens": tokens[:, :s // 4]})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in launches:
+            launches[k] = 0
+        with Capture(ops, ("banded_attention",)) as cap:
+            t0 = time.perf_counter()
+            logits, _ = M.forward(cfg, params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        counts = dict(launches)
+        if counts["block_attention"] != cfg.n_layers:
+            raise AssertionError(
+                f"prefill launched banded_attention "
+                f"{counts['block_attention']} times, not once per layer "
+                f"({cfg.n_layers})")
+        if logits.shape != (b, s, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"not finite or of the wrong shape")
+        del logits
+        out["prefill"] = {"batch": b, "tokens": s, "seconds": prefill_s,
+                          "tokens_per_s": b * s / prefill_s,
+                          "peak_mem_gb": torch.cuda.max_memory_allocated()
+                          / 1e9, "launches": counts}
+        log(f"  prefill {b} x {s}: {prefill_s:.3f} s, "
+            f"{b * s / prefill_s:.1f} tokens/s, launches {counts}")
+        torch.cuda.empty_cache()
+
+        _, (q, k, v), kw = cap.calls.pop("banded_attention")
+        tm = time_attention(torch, ref, q, k, v, kw["window"],
+                            kw["causal"])
+        tm["gqa_expand_ms"] = gqa_expand_ms(torch, k, v, cfg.n_kv_heads)
+        tm["prefill_share"] = tm["ms"] * cfg.n_layers / 1e3 / prefill_s
+        out["timing"] = {"banded_attention": tm}
+        del q, k, v
+        log(f"    banded_attention: ms={tm['ms']:.4f} "
+            f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']} "
+            f"(sdpa {tm['library_ms_at_seq']} ms at S={tm['library_seq']}) "
+            f"bound_ms={tm['bound_ms']:.4f} "
+            f"({tm['bound_by']}) max_abs_err={tm['max_abs_err']:.3g} "
+            f"gqa_expand_ms={tm['gqa_expand_ms']:.4f} "
+            f"prefill_share={tm['prefill_share']:.3f} {tm['shape']}")
+
+    bs, plen, n_gen = LM_SERVE
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab, (bs, plen)).astype(np.int32)
+    lm_serve.generate(cfg, params, prompts[:, :2], 2, 4)      # warm-up
+    for k in launches:
+        launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_out = lm_serve.generate(cfg, params, prompts, n_gen, plen + n_gen)
+    serve_s = time.perf_counter() - t0
+    serve_counts = dict(launches)
+    if toks_out.shape != (bs, n_gen) or not ((toks_out >= 0).all()
+                                             and (toks_out < cfg.vocab).all()):
+        raise AssertionError(f"generate gave {toks_out.shape} tokens outside "
+                             f"[0, {cfg.vocab})")
+    out["serve"] = {"batch": bs, "prompt": plen, "gen": n_gen,
+                    "seconds": serve_s, "tokens_per_s": bs * n_gen / serve_s,
+                    "steps_per_s": (plen + n_gen - 1) / serve_s,
+                    "launches": serve_counts, "sample": toks_out[0].tolist()}
+    log(f"  serve batch {bs} prompt {plen} gen {n_gen}: {serve_s:.3f} s, "
+        f"{bs * n_gen / serve_s:.1f} tokens/s, "
+        f"{(plen + n_gen - 1) / serve_s:.1f} steps/s")
+    out["launches"] = {k: counts[k] + serve_counts[k] for k in counts}
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: report
 # ---------------------------------------------------------------------------
 
-#: the phase whose wave gives each kernel's headline row
-HEADLINE = {"bsmm_pairs": "banded", "batched_gemm": "banded_gemm"}
+#: the phase whose run gives each kernel's headline row
+HEADLINE = {"bsmm_pairs": "banded", "batched_gemm": "banded_gemm",
+            "banded_attention": "lm"}
 
 
 def kernel_rows(phases, launches_total, worst) -> list:
@@ -492,9 +830,10 @@ def kernel_rows(phases, launches_total, worst) -> list:
                                    for ph in phases.values()
                                    if name in ph["timing"]])
         rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/csrc/{name}.cu",
+                     "source": f"src/repro_torch/csrc/{COUNTER[name]}.cu",
                      "replaces": REPLACES[name],
-                     "launches": launches_total[name], "max_abs_err": err,
+                     "launches": launches_total[COUNTER[name]],
+                     "max_abs_err": err,
                      "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                      "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                      "library_ms": tm["library_ms"]})
@@ -553,6 +892,15 @@ def main() -> int:
     build_share = sum(ph["build_s"] for ph in phases.values())
     log(f"  main_s={time.perf_counter() - t0:.3f} "
         f"host_construction_s={build_share:.3f} launches={total}")
+
+    log("phase lm: h2o-danube3-4b at full width and depth")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phases["lm"] = lm_phase(torch, ops, ref, _build.LAUNCHES)
+    worst["banded_attention"] = phases["lm"]["kernel_small_max_abs_err"]
+    total = {k: total[k] + phases["lm"]["launches"][k]
+             for k in _build.KERNELS}
+    log(f"  lm_s={time.perf_counter() - t0:.3f} launches={total}")
 
     log("phase 4: report")
     rows = kernel_rows(phases, total, worst)

@@ -4,8 +4,11 @@ block-sparse matmul in the Chunks and Tasks model.
 Public API: the :class:`Session`/:class:`Matrix` facade (``repro_torch.api``)
 — operator-overloaded quadtree matrices over one context object — with the
 leaf engine ``engine="torch"``, whose batched leaf multiply runs as
-hand-written CUDA kernels on the GPU.  The subsystems remain importable
-directly (``repro_torch.core``, ``repro_torch.kernels``, ...).
+hand-written CUDA kernels on the GPU.  The LM substrate (``models``,
+``configs``, ``launch.lm_serve``) runs the dense attention family, its
+sliding-window attention through the ``banded_attention`` kernel.  The
+subsystems remain importable directly (``repro_torch.core``,
+``repro_torch.kernels``, ...).
 
 The package imports ``torch`` and numpy, never ``jax`` and never the
 reference package ``repro``.  Imports are lazy (PEP 562) so ``import
@@ -13,9 +16,9 @@ repro_torch`` stays cheap.
 """
 
 __all__ = ["Session", "Matrix", "Plan", "PlanStructureError",
-           "api", "core", "kernels", "obs"]
+           "api", "configs", "core", "kernels", "launch", "models", "obs"]
 
-_SUBPACKAGES = ("api", "core", "kernels", "obs")
+_SUBPACKAGES = ("api", "configs", "core", "kernels", "launch", "models", "obs")
 
 
 def __getattr__(name):

@@ -396,17 +396,18 @@ class _Pending:
 
 
 def resolve_device(device=None) -> torch.device:
-    """The engine's device: ``None`` means CUDA, which must be present."""
+    """The device of an entry point of the port (``TorchEngine``, the LM):
+    ``None`` means CUDA, which must be present."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "TorchEngine runs its kernels on a CUDA device and none is "
+                "repro_torch runs its kernels on a CUDA device and none is "
                 "available; pass device='cpu' to run the plain PyTorch "
                 "versions instead")
         device = "cuda"
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"TorchEngine runs on 'cuda' or 'cpu', not {device}")
+        raise ValueError(f"repro_torch runs on 'cuda' or 'cpu', not {device}")
     return device
 
 

@@ -22,7 +22,8 @@ import subprocess
 import tempfile
 
 #: kernel name -> launches so far (reset by callers that count one run)
-LAUNCHES: dict[str, int] = {"bsmm_pairs": 0, "batched_gemm": 0}
+LAUNCHES: dict[str, int] = {"bsmm_pairs": 0, "batched_gemm": 0,
+                            "block_attention": 0}
 
 #: kernels of this package, each one ``csrc/<name>.cu``
 KERNELS = tuple(LAUNCHES)

@@ -14,9 +14,10 @@ import torch
 from . import ref
 from ._build import LAUNCHES
 from .batched_gemm import batched_gemm as _batched_gemm_kernel
+from .block_attention import banded_attention as _banded_attention_kernel
 from .bsmm_pairs import bsmm_pairs as _bsmm_pairs_kernel
 
-__all__ = ["LAUNCHES", "batched_gemm", "bsmm_pairs"]
+__all__ = ["LAUNCHES", "banded_attention", "batched_gemm", "bsmm_pairs"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -48,3 +49,30 @@ def bsmm_pairs(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
         return _bsmm_pairs_kernel(a_blocks, b_blocks, sa, sb, seg,
                                   cap_c=cap_c)
     return ref.bsmm_pairs_ref(a_blocks, b_blocks, sa, sb, seg, cap_c)
+
+
+def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     window: int, block_q: int = 128, block_kv: int = 128,
+                     causal: bool = True) -> torch.Tensor:
+    """Sliding-window attention, (H, S, D) -> (H, S, D).
+
+    The reference's block contract holds on every device: square blocks
+    (``block_q == block_kv``), ``S`` a multiple of the block and
+    ``window`` a multiple of ``block_kv``.  The result does not depend on
+    the blocks (the mask is per element), so neither the kernel nor the
+    plain version reads them.
+    """
+    s = q.shape[1]
+    if block_q != block_kv:
+        raise ValueError(f"banded_attention assumes square q/kv blocks, got "
+                         f"block_q={block_q} block_kv={block_kv}")
+    if s % block_q:
+        raise ValueError(f"banded_attention: S={s} is not a multiple of the "
+                         f"block {block_q}")
+    if window % block_kv:
+        raise ValueError(f"banded_attention: window={window} is not a "
+                         f"multiple of block_kv={block_kv}")
+    if _on_cuda(q):
+        return _banded_attention_kernel(q, k, v, window=window,
+                                        causal=causal)
+    return ref.banded_attention_ref(q, k, v, window, causal=causal)

@@ -37,3 +37,35 @@ def bsmm_pairs_ref(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
                       device=a_blocks.device)
     out.index_add_(0, seg.long().clamp(max=cap_c), prods)
     return out[:cap_c].to(a_blocks.dtype)
+
+
+def band_mask(s: int, window: int, causal: bool = True,
+              device=None) -> torch.Tensor:
+    """(S, S) bool: query i attends key j iff |i - j| < window, and
+    j <= i when causal."""
+    return torch.ones((s, s), dtype=torch.bool, device=device).triu(
+        -(window - 1)).tril(0 if causal else window - 1)
+
+
+def banded_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         window: int, causal: bool = True) -> torch.Tensor:
+    """Sliding-window attention oracle.
+
+    q, k, v : (H, S, D); window counts key positions attended to the left
+    (inclusive of self): position i attends keys in [i-window+1, i]
+    (causal) or |i - j| < window (bidirectional).
+
+    A dense masked softmax, entirely in float32 (scores, their 1/sqrt(D)
+    scale, the softmax and ``p @ v``), cast to q's type once at the end:
+    the rounding of the Pallas kernel and of the CUDA kernel.  The
+    reference's oracle (``repro/kernels/ref.py``) rounds the scaled
+    scores and ``p`` to q's type as well, so in bfloat16 the two differ
+    by a few ulps.
+    """
+    d = q.shape[-1]
+    scores = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * (
+        1.0 / d ** 0.5)
+    mask = band_mask(q.shape[1], window, causal, device=q.device)
+    scores = scores.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("hqk,hkd->hqd", probs, v.float()).to(q.dtype)

@@ -1,0 +1,198 @@
+"""Shared model layers: norms, RoPE, attention variants, MLP.
+
+The port of ``repro/models/layers.py``.  Attention comes in three paths:
+
+* ``chunked_attention`` — full (causal or bidirectional) attention computed
+  blockwise with an online softmax over kv chunks; peak memory
+  O(S * q_chunk) per head instead of O(S^2).  Plain PyTorch.
+* ``windowed_attention`` — the paper's *banded block-sparse* case: each
+  query attends only the keys inside the sliding window, O(S * W) work.
+  It runs the hand-written CUDA kernel ``banded_attention`` on the card
+  (``repro_torch.kernels.ops``), its plain version on the CPU.
+* ``decode_attention`` — single-position attention against a KV cache.
+  Plain PyTorch.
+
+All keep float32 softmax numerics regardless of activation dtype.  MoE
+(``moe_ffn``) is not ported yet (ROADMAP.md, queue 1 item 8).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+_NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: Optional[torch.Tensor],
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm with the reference's ``1 + scale`` convention (zeros are the
+    identity)."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    if scale is not None:
+        out = out * (1.0 + scale.float())
+    return out.to(x.dtype)
+
+
+def nonparam_layer_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: no scale, no bias."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def apply_norm(kind: str, x: torch.Tensor, scale: Optional[torch.Tensor]
+               ) -> torch.Tensor:
+    if kind == "nonparam_ln":
+        return nonparam_layer_norm(x)
+    return rms_norm(x, scale)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_frequencies(hd: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                         device=device) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, n_heads, hd); positions: (..., S).  Half-split rotation:
+    the first and second halves of ``hd`` are the pairs' two parts."""
+    hd = x.shape[-1]
+    freqs = rope_frequencies(hd, theta, device=x.device)      # (hd/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, hd/2)
+    cos = torch.cos(angles)[..., None, :]                      # head axis
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention variants
+# ---------------------------------------------------------------------------
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, q_chunk: int = 512,
+                      kv_chunk: int = 1024,
+                      unroll: bool = False) -> torch.Tensor:
+    """Flash-pattern full attention.
+
+    q: (B, S, KV, G, hd); k, v: (B, S, KV, hd).  Returns (B, S, KV, G, hd).
+    Memory per step: O(q_chunk * kv_chunk) scores per (KV, G).  ``unroll``
+    is the reference's compile switch and has no effect here.
+    """
+    b, s, kvh, g, hd = q.shape
+    t = k.shape[1]
+    q_chunk = min(q_chunk, s)
+    kv_chunk = min(kv_chunk, t)
+    assert s % q_chunk == 0 and t % kv_chunk == 0
+    nq, nk = s // q_chunk, t // kv_chunk
+    scale = 1.0 / (hd ** 0.5)
+    dev = q.device
+
+    chunks = []
+    for iq in range(nq):
+        # (B, qc, KV, G, hd)
+        qi = q[:, iq * q_chunk:(iq + 1) * q_chunk] * scale
+        m = torch.full((b, kvh, g, q_chunk), _NEG, device=dev)
+        l = torch.zeros((b, kvh, g, q_chunk), device=dev)
+        acc = torch.zeros((b, kvh, g, q_chunk, hd), device=dev)
+        for jk in range(nk):
+            kj = k[:, jk * kv_chunk:(jk + 1) * kv_chunk]
+            vj = v[:, jk * kv_chunk:(jk + 1) * kv_chunk]
+            s_ij = torch.einsum("bqvgh,bkvh->bvgqk", qi.float(), kj.float())
+            if causal:
+                qpos = iq * q_chunk + torch.arange(q_chunk,
+                                                   device=dev)[:, None]
+                kpos = jk * kv_chunk + torch.arange(kv_chunk,
+                                                    device=dev)[None, :]
+                s_ij = torch.where(qpos >= kpos, s_ij, _NEG)
+            m_new = torch.maximum(m, s_ij.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s_ij - m_new[..., None])
+            l = alpha * l + p.sum(-1)
+            acc = alpha[..., None] * acc + torch.einsum(
+                "bvgqk,bkvh->bvgqh", p, vj.float())
+            m = m_new
+        out = acc / (l[..., None] + 1e-30)          # (B, KV, G, qc, hd)
+        chunks.append(out.permute(0, 3, 1, 2, 4).to(q.dtype))
+    return torch.cat(chunks, dim=1)
+
+
+def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                       window: int, causal: bool = True,
+                       block: int = 512) -> torch.Tensor:
+    """Banded block-sparse attention (paper's banded case, §5.1).
+
+    Each query attends the keys within ``window`` positions (to its left
+    when causal): O(S * W) work.  q: (B, S, KV, G, hd); k, v: (B, S, KV,
+    hd).  The heads go to :func:`repro_torch.kernels.ops.banded_attention`
+    as (B*KV*G, S, hd), with k and v copied over the G query heads of each
+    group; ``block`` only has to meet the reference's contract.
+    """
+    b, s, kvh, g, hd = q.shape
+    block = min(block, s)
+    assert s % block == 0 and window % block == 0
+    heads = b * kvh * g
+
+    def per_head(x):                 # (B, S, KV, G, hd) -> (B*KV*G, S, hd)
+        # a copy: at B = 1 the reshape of q alone would be a strided view
+        return x.permute(0, 2, 3, 1, 4).contiguous().view(heads, s, hd)
+
+    qh = per_head(q)
+    kh = per_head(k[:, :, :, None].expand(b, s, kvh, g, hd))
+    vh = per_head(v[:, :, :, None].expand(b, s, kvh, g, hd))
+    out = ops.banded_attention(qh, kh, vh, window=window, block_q=block,
+                               block_kv=block, causal=causal)
+    return out.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """One-token attention against a cache.
+
+    q: (B, 1, KV, G, hd); caches: (B, T, KV, hd); pos: current length.
+    window > 0 restricts to the last ``window`` positions (SWA decode).
+    """
+    b, _, kvh, g, hd = q.shape
+    t = k_cache.shape[1]
+    scale = 1.0 / (hd ** 0.5)
+    s = torch.einsum("bovgh,btvh->bvgt", (q * scale).float(),
+                     k_cache.float())
+    idx = torch.arange(t, device=q.device)
+    valid = idx <= pos
+    if window:
+        valid = valid & (idx > pos - window)
+    s = torch.where(valid, s, _NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bvgt,btvh->bvgh", p.to(q.dtype), v_cache)
+    return out.reshape(b, 1, kvh, g, hd)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
+def gelu_mlp(x, w1, w2):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x @ w1, approximate="tanh") @ w2

@@ -74,3 +74,82 @@ def test_session_runs_through_the_kernels(cuda_device):
         c = (sess.from_dense(a) @ sess.from_dense(a).T).to_dense()
         assert ops.LAUNCHES[name] == before + sess.engine_stats()["waves"]
         np.testing.assert_allclose(c, a @ a.T, atol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,s,d,window,block", [
+    (3, 128, 16, 32, 32),
+    (2, 96, 120, 32, 32),      # S not a multiple of the kernel's 64-row tile
+    (2, 160, 160, 64, 32),
+    (1, 64, 120, 128, 64),     # window > S: full attention
+])
+def test_banded_attention_matches_plain_version(cuda_device, causal, dtype,
+                                                h, s, d, window, block):
+    """Each element against the plain version's float32 result before its
+    cast.  float32: atol 1e-4 (both sum in float32, in other orders).
+    bfloat16: 2**-8 |want| + 1e-3 rms(want): the kernel rounds once, at
+    the output, by at most half a bf16 ulp (2**-8 of the value), and the
+    float32 sums' order stays far inside 1e-3 of the output's rms.  Where
+    the band is narrower than S, the plain version with the window one
+    key short must fail that check."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (torch.tensor(rng.standard_normal((h, s, d)), dtype=dtype,
+                            device=cuda_device) for _ in range(3))
+    before = ops.LAUNCHES["block_attention"]
+    got = ops.banded_attention(q, k, v, window=window, block_q=block,
+                               block_kv=block, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_attention"] == before + 1
+    want32 = ref.banded_attention_ref(q.float(), k.float(), v.float(),
+                                      window, causal=causal)
+    assert got.dtype == dtype and got.shape == want32.shape
+    assert _attention_within(got, want32)
+    if window < s:
+        short = ref.banded_attention_ref(q, k, v, window - 1, causal=causal)
+        assert not _attention_within(short, want32)
+
+
+def _attention_within(got, want32) -> bool:
+    diff = (got.float() - want32).abs()
+    if got.dtype == torch.float32:
+        return bool((diff <= 1e-4).all())
+    rms = want32.pow(2).mean().sqrt()
+    return bool((diff <= 2 ** -8 * want32.abs() + 1e-3 * rms).all())
+
+
+def test_banded_attention_refuses_what_it_does_not_take(cuda_device):
+    from repro_torch.kernels import block_attention as kba
+    q = torch.zeros((1, 64, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        kba.banded_attention(q.half(), q.half(), q.half(), window=16)
+    with pytest.raises(ValueError):
+        kba.banded_attention(q[:, :, :15].contiguous(),
+                             q[:, :, :15].contiguous(),
+                             q[:, :, :15].contiguous(), window=16)
+    with pytest.raises(ValueError):
+        kba.banded_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                             q, q, window=16)
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+def test_lm_prefill_runs_through_the_kernel(cuda_device, batch):
+    """A window-path prefill of the h2o smoke config launches the kernel
+    once per layer and agrees with the same prefill on the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("h2o_danube3_4b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (batch, 64)))
+    with torch.inference_mode():
+        want, _ = M.forward(cfg, params, {"tokens": tokens})
+        gpu = {k: ({n: w.to(cuda_device) for n, w in v.items()}
+                   if isinstance(v, dict) else v.to(cuda_device))
+               for k, v in params.items()}
+        before = ops.LAUNCHES["block_attention"]
+        got, _ = M.forward(cfg, gpu, {"tokens": tokens.to(cuda_device)})
+        torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_attention"] == before + cfg.n_layers
+    assert float((got.cpu() - want).abs().max()) <= 1e-4

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import batched_gemm as kbg  # noqa: E402
+from repro_torch.kernels import block_attention as kba  # noqa: E402
 from repro_torch.kernels import bsmm_pairs as kbp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -139,25 +140,29 @@ class TestDispatch:
         with pytest.raises(ValueError, match="device"):
             ops.batched_gemm(a, a)
 
-    @pytest.mark.parametrize("kernel", [kbg.batched_gemm, kbp.bsmm_pairs])
+    @pytest.mark.parametrize("kernel", [kbg.batched_gemm, kbp.bsmm_pairs,
+                                        kba.banded_attention])
     def test_kernel_wrappers_refuse_cpu_tensors(self, kernel):
         """The launch wrappers never run a plain version themselves."""
         a = torch.zeros((2, 8, 8))
         idx = torch.zeros(2, dtype=torch.int32)
-        args = (a, a) if kernel is kbg.batched_gemm else (a, a, idx, idx,
-                                                          idx)
-        kw = {} if kernel is kbg.batched_gemm else {"cap_c": 1}
+        args, kw = {kbg.batched_gemm: ((a, a), {}),
+                    kbp.bsmm_pairs: ((a, a, idx, idx, idx), {"cap_c": 1}),
+                    kba.banded_attention: ((a, a, a), {"window": 4})}[kernel]
         with pytest.raises(ValueError, match="CUDA"):
             kernel(*args, **kw)
 
     def test_sources_exist_and_are_named_by_loader(self):
-        assert set(_build.KERNELS) == {"bsmm_pairs", "batched_gemm"}
+        # kernel (csrc/<name>.cu) -> its C entry points' prefix
+        entry = {"bsmm_pairs": "bsmm_pairs", "batched_gemm": "batched_gemm",
+                 "block_attention": "banded_attention"}
+        assert set(_build.KERNELS) == set(entry)
         for name in _build.KERNELS:
             src = _build.source_of(name)
             assert src.is_file() and src.suffix == ".cu"
             text = src.read_text()
-            assert f'extern "C" int {name}_f32(' in text
-            assert f'extern "C" int {name}_bf16(' in text
+            assert f'extern "C" int {entry[name]}_f32(' in text
+            assert f'extern "C" int {entry[name]}_bf16(' in text
             assert "src/repro/kernels/" in text     # names the TPU kernel
         assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
         assert set(ops.LAUNCHES) == set(_build.KERNELS)
