@@ -3,7 +3,9 @@
 The Hopper port of ``src/repro/kernels/batched_gemm.py::batched_gemm``:
 ``C[p] = A[p] @ B[p]`` over a ``(P, bs, bs)`` stack, float32 sums, output
 in A's type.  The TPU kernel padded P to a multiple of its batch tile; this
-one masks its ragged last thread block instead, so it takes any P.
+one is a persistent grid whose blocks stream their products through a
+ring of ``cp.async`` stages and copy and store only the products that
+exist, so it takes any P.
 
 This module launches the kernel and nothing else: the dispatch between the
 kernel (CUDA tensors) and the plain version (CPU tensors) lives in
@@ -55,6 +57,9 @@ def batched_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     p, bs, _ = a.shape
     if p >= 2 ** 31:
         raise ValueError("batched_gemm: more than 2**31 - 1 products")
+    # the kernel moves 16-byte chunks: a view that starts off that grid is
+    # copied to a fresh (aligned) allocation first
+    a, b = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (a, b))
     out = torch.empty_like(a)
     if p == 0:
         return out
