@@ -1,8 +1,10 @@
 // banded_attention: sliding-window flash attention, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel src/repro/kernels/block_attention.py::
-// banded_attention (body _kernel).  q, k, v are (H, S, D); query i attends
-// key j iff |i - j| < window, and j <= i when causal.  Scores, their
+// banded_attention (body _kernel).  q is (H, S, D), k and v are (H_kv, S, D)
+// with H_kv dividing H: query head h reads kv head h / (H / H_kv), so
+// grouped-query attention needs no copy of k and v over the group.  Query i
+// attends key j iff |i - j| < window, and j <= i when causal.  Scores, their
 // 1/sqrt(D) scale, the online softmax (running max m, denominator l) and the
 // accumulator stay float32; the output acc / (l + 1e-30) is stored once, in
 // q's type.  Masked scores are excluded exactly as in the Pallas body: they
@@ -11,26 +13,61 @@
 // What bounds it on the H100: at the LM's shapes (S = 32768, window 4096,
 // D = 120, bf16) a head is 126 M (query, key) pairs, 480 FLOP each, on
 // 31 MB of q, k, v and o: about 2,000 FLOP a byte, so operations bound it,
-// and the bound is the bf16 tensor-core rate.  This first version does
-// nothing about that: plain float32 FMA loops, no tensor cores, so it can
-// reach at best the 67 TFLOP/s of float32 outside them.
+// and the bound is the bf16 tensor-core rate (989 TFLOP/s).
 //
-// Design.  The TPU kernel walks the band on a sequential third grid axis
-// and keeps m, l and acc in VMEM across its steps, clamping out-of-range kv
-// blocks to block 0 and masking them away.  Here one thread block owns one
-// (head, 64-query tile) and a loop inside it walks the 64-key tiles that the
-// band touches, each exactly once; tiles outside [0, S) are never visited.
-// The q tile and each k and v tile are staged in shared memory as float32
-// (rows padded to an odd stride, so that a warp reading one column of
-// different rows hits different banks); P = softmax numerators of the tile
-// goes through shared memory to the P @ V step.  256 threads as a 16 x 16
-// grid: thread (ty, tx) owns query rows ty + 16 i (i < 4), score columns
-// tx + 16 c (c < 4) and output columns tx + 16 j (j < NJ), so row maxima and
-// sums reduce over the 16 lanes of one half-warp with shuffles.  The mask is
-// per element, so the tile size is the kernel's own: rows and keys past S
-// are masked here, and the caller's block_q / block_kv do not reach it.
+// Two designs; the wrapper (kernels/block_attention.py) picks one a call.
+//
+// tc::banded_attention_wgmma — bfloat16 with D % 8 == 0, the LM's path.
+// Tensor cores, since only they reach the bound.  One block owns 128 query
+// rows of one head: two consumer warpgroups of 64 rows and one producer
+// warpgroup, whose registers go to the consumers (setmaxnreg: without it
+// ptxas serializes the wgmma for want of registers).  The producer's first
+// lane loads the q tile once and then every 64-key K/V tile of the band
+// into a ring of 2-4 stages with TMA (3-D tensor maps over (D, S, heads),
+// 64 x 64 boxes, 128-byte swizzle; boxes past S or past D read zeros,
+// which pads D to a multiple of 64 for q k^T), each stage signalled by an
+// mbarrier and released by the consumers' warps.  So a K/V tile is read
+// once for 128 rows, and the kv head comes from the query head in the
+// kernel.  Each consumer computes S = q k^T with wgmma (both operands
+// K-major in shared memory) and O += p v with wgmma taking p from
+// registers and v as an MN-major operand from shared memory; the p v of
+// one tile runs on the tensor cores while the warpgroup does the next
+// tile's online softmax in float32 on the accumulator registers (exp2 of
+// scores prescaled by log2(e) / sqrt(D)).  p enters p v as two bf16 parts,
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi), two products into the same
+// float32 accumulator: p v then keeps about 16 bits of p, and the output
+// keeps the one rounding of the FMA design (a single bf16 p would miss the
+// per-element check against the float32 plain version).  That costs half
+// again the tensor-core work that the bound counts.  Every tile of the
+// block's band is computed by both warpgroups (a wgmma under a branch that
+// ptxas cannot prove uniform is serialized); only tiles that cross the
+// band's edge, the diagonal or S build the per-element mask.
+//
+// banded_attention_kernel — everything else: float32 (whose atol 1e-4
+// tensor cores cannot meet without 3xTF32) and bfloat16 with D % 8 != 0.
+// Plain float32 FMA loops, at best the 67 TFLOP/s of float32 outside the
+// tensor cores.  The TPU kernel walks the band on a sequential third grid
+// axis and keeps m, l and acc in VMEM across its steps, clamping
+// out-of-range kv blocks to block 0 and masking them away.  Here one thread
+// block owns one (head, 64-query tile) and a loop inside it walks the
+// 64-key tiles that the band touches, each exactly once; tiles outside
+// [0, S) are never visited.  The q tile and each k and v tile are staged in
+// shared memory as float32 (rows padded to an odd stride, so that a warp
+// reading one column of different rows hits different banks); P = softmax
+// numerators of the tile goes through shared memory to the P @ V step.
+// 256 threads as a 16 x 16 grid: thread (ty, tx) owns query rows ty + 16 i
+// (i < 4), score columns tx + 16 c (c < 4) and output columns tx + 16 j
+// (j < NJ), so row maxima and sums reduce over the 16 lanes of one
+// half-warp with shuffles.
+//
+// In both the mask is per element, so the tile size is the kernel's own:
+// rows and keys past S are masked here, and the caller's block_q / block_kv
+// do not reach it.
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <stdint.h>
+
 
 namespace {
 
@@ -73,7 +110,8 @@ template <int NJ, typename T>
 __global__ void __launch_bounds__(TPB)
 banded_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, T* __restrict__ o, int S,
-                        int D, int window, int causal, float scale) {
+                        int D, int group, int window, int causal,
+                        float scale) {
   extern __shared__ float smem[];
   const int ld = D + 1;
   const int vld = 16 * NJ;
@@ -85,9 +123,10 @@ banded_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int q0 = blockIdx.x * BQ;
   const size_t head = (size_t)blockIdx.y * S * D;
+  const size_t kv_head = (size_t)(blockIdx.y / group) * S * D;
   const T* qh = q + head;
-  const T* kh = k + head;
-  const T* vh = v + head;
+  const T* kh = k + kv_head;
+  const T* vh = v + kv_head;
 
   stage(qs, qh, q0, BQ, S, D, ld);
 
@@ -194,8 +233,8 @@ banded_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <int NJ, typename T>
-int launch_nj(const T* q, const T* k, const T* v, T* o, int H, int S, int D,
-              int window, int causal, cudaStream_t st) {
+int launch_nj(const T* q, const T* k, const T* v, T* o, int H, int group,
+              int S, int D, int window, int causal, cudaStream_t st) {
   const size_t smem = sizeof(float) * smem_floats(D, NJ);
   cudaError_t err = cudaFuncSetAttribute(
       banded_attention_kernel<NJ, T>,
@@ -203,44 +242,527 @@ int launch_nj(const T* q, const T* k, const T* v, T* o, int H, int S, int D,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + BQ - 1) / BQ, H);
   banded_attention_kernel<NJ, T><<<grid, TPB, smem, st>>>(
-      q, k, v, o, S, D, window, causal, 1.0f / sqrtf((float)D));
+      q, k, v, o, S, D, group, window, causal, 1.0f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int H,
-           int S, int D, int window, int causal, void* stream) {
+           int H_kv, int S, int D, int window, int causal, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* Q = static_cast<const T*>(q);
   const T* K = static_cast<const T*>(k);
   const T* V = static_cast<const T*>(v);
   T* O = static_cast<T*>(o);
+  const int G = H / H_kv;
   // output columns per thread: the fewest instantiated NJ with 16 NJ >= D
-  if (D <= 16) return launch_nj<1, T>(Q, K, V, O, H, S, D, window, causal, st);
-  if (D <= 32) return launch_nj<2, T>(Q, K, V, O, H, S, D, window, causal, st);
-  if (D <= 64) return launch_nj<4, T>(Q, K, V, O, H, S, D, window, causal, st);
-  if (D <= 128) return launch_nj<8, T>(Q, K, V, O, H, S, D, window, causal, st);
-  if (D <= 160) return launch_nj<10, T>(Q, K, V, O, H, S, D, window, causal, st);
-  return launch_nj<16, T>(Q, K, V, O, H, S, D, window, causal, st);
+  if (D <= 16) return launch_nj<1, T>(Q, K, V, O, H, G, S, D, window, causal, st);
+  if (D <= 32) return launch_nj<2, T>(Q, K, V, O, H, G, S, D, window, causal, st);
+  if (D <= 64) return launch_nj<4, T>(Q, K, V, O, H, G, S, D, window, causal, st);
+  if (D <= 128) return launch_nj<8, T>(Q, K, V, O, H, G, S, D, window, causal, st);
+  if (D <= 160) return launch_nj<10, T>(Q, K, V, O, H, G, S, D, window, causal, st);
+  return launch_nj<16, T>(Q, K, V, O, H, G, S, D, window, causal, st);
 }
 
 }  // namespace
 
-// C entry points, loaded with ctypes.  q, k, v, o are contiguous (H, S, D)
-// device arrays of one type; 1 <= H <= 65535, S >= 1, D even and <= 256,
-// 1 <= window <= S.  The Python wrapper (kernels/block_attention.py) checks
-// all of that; this side only launches.  Returns cudaGetLastError() (or the
-// attribute call's error).
+// ---------------------------------------------------------------------------
+// The tensor-core design (bfloat16, D % 8 == 0)
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kRows = 64;              // query rows of one consumer warpgroup
+constexpr int kConsumers = 2;          // consumer warpgroups a block
+constexpr int kBQ = kRows * kConsumers;  // query rows a block
+constexpr int kBK = 64;                // keys a K/V tile
+constexpr int kBox = 64;               // columns of one TMA box (128 bytes)
+constexpr int kBoxBytes = kBox * 64 * 2;  // one 64 x 64 bf16 box: 8 KB
+constexpr int kThreads = 128 * (kConsumers + 1);  // + one producer warpgroup
+// registers a thread after setmaxnreg: the producer gives up what the
+// consumers' accumulators need (2 x 232 + 40 per SM sub-partition fits)
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kNeg = -1e30f;
+
+// Ring stages for NB boxes of head width: the ring and the q tile must fit
+// in the 227 KB a block may use.
+template <int NB> struct Cfg {
+  static constexpr int kStages = NB <= 2 ? 4 : NB == 3 ? 3 : 2;
+  static constexpr int kQBytes = kConsumers * NB * kBoxBytes;
+  static constexpr int kKVBytes = NB * kBoxBytes;           // K or V, one stage
+  static constexpr int kBarOff = kQBytes + 2 * kStages * kKVBytes;
+  static constexpr int kBars = 2 * kStages + 1;            // full, empty, q
+  static constexpr int kSmem = kBarOff + 8 * kBars + 1024;  // + alignment
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// wait until the phase of parity `parity` of the barrier has completed; a
+// wait of more than about 10 s can only be a fault, and traps (the launch
+// then fails) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  do {
+    if (clock64() - start > 20000000000LL) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// one 64-column box of a (rows, D) slab of a 3-D (D, S, heads) tensor map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int col, int row, int head) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(col), "r"(row), "r"(head)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor for a tile laid out as TMA writes it with
+// the 128-byte swizzle: rows of 128 bytes, 8-row atoms of 1024 bytes (the
+// stride byte offset).  For a K-major operand the leading byte offset is
+// unused; for the MN-major V it is the distance between 64-column boxes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo_bytes) {
+  uint64_t d = (uint64_t)((addr & 0x3FFFF) >> 4);
+  d |= (uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16;
+  d |= (uint64_t)(1024 >> 4) << 32;
+  d |= (uint64_t)1 << 62;                // 128-byte swizzle
+  return d;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups of wgmma are still running
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of an accumulator across
+// the wgmma calls that own it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 64, f32) (+)= A (64 x 16, smem, K-major) B (16 x 64, smem, K-major)
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                       int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) B (16 x 64, smem, MN-major)
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// O += p v over one 64-key tile: per k-step of 16 keys and per 64-column
+// box of v, p_hi v and p_lo v into the same float32 accumulator
+template <int NB>
+__device__ __forceinline__ void issue_pv(float (&acc)[NB][32],
+                                         const uint32_t (&p_hi)[4][4],
+                                         const uint32_t (&p_lo)[4][4],
+                                         uint32_t v_tile) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) {
+      const uint64_t dv = desc(v_tile + nb * kBoxBytes + kk * 16 * 128, kBoxBytes);
+      mma_rs(acc[nb], p_hi[kk], dv);
+      mma_rs(acc[nb], p_lo[kk], dv);
+    }
+}
+
+// The band of one block: key tiles [t_lo, t_hi] touched by rows
+// [q0, q0 + kBQ) within [0, S); the same walk as the FMA design's.
+struct Band {
+  int t_lo, t_hi;
+  __device__ Band(int q0, int S, int window, int causal) {
+    const int q_last = min(q0 + kBQ, S) - 1;
+    const int lo = max(0, q0 - window + 1);
+    const int hi = causal ? q_last : min(S - 1, q_last + window - 1);
+    t_lo = lo / kBK;
+    t_hi = hi / kBK;
+  }
+};
+
+// One block: query rows [q0, q0 + 128) of head blockIdx.y.  Warps 0-7 are
+// two consumer warpgroups of 64 rows each; warps 8-11 are the producer
+// warpgroup, which hands most of its registers to the consumers
+// (setmaxnreg) and whose first lane brings the q tile and then every K/V
+// tile of the band into the ring with TMA.  Per tile each consumer
+// warpgroup issues S = q k^T (wgmma, q and k from shared memory) and then
+// O += p_hi v + p_lo v of the previous tile (wgmma, p from registers, v
+// from shared memory); while the tensor cores run p v, it does the online
+// softmax of S in float32 on the accumulator registers; then it rescales
+// O, splits the new p into bf16 p_hi + p_lo and releases the previous
+// stage.
+template <int NB>
+__global__ void __launch_bounds__(kThreads, 1)
+banded_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       __nv_bfloat16* __restrict__ o, int S, int D, int group,
+                       int window, int causal, float scale_log2) {
+  using C = Cfg<NB>;
+  constexpr int ST = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = base + C::kQBytes;
+  const uint32_t v_s = k_s + ST * C::kKVBytes;
+  // mbarriers: full[ST], empty[ST], q_full
+  const uint32_t bar = base + C::kBarOff;
+  auto full = [&](int s) { return bar + 8 * s; };
+  auto empty = [&](int s) { return bar + 8 * (ST + s); };
+  const uint32_t q_full = bar + 16 * ST;
+
+  const int head = blockIdx.y;
+  const int kv_head = head / group;
+  const int q0 = blockIdx.x * kBQ;
+  const Band band(q0, S, window, causal);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4 * kConsumers);   // one arrival per consumer warp
+    }
+    mbar_init(q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumers) {
+    // ---- producer ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == 4 * kConsumers && lane == 0) {
+      mbar_expect_tx(q_full, C::kQBytes);
+      for (int w = 0; w < kConsumers; ++w)
+        for (int nb = 0; nb < NB; ++nb)
+          tma_load(q_s + (w * NB + nb) * kBoxBytes, &tm_q, q_full, nb * kBox,
+                   q0 + w * kRows, head);
+      for (int t = band.t_lo, i = 0; t <= band.t_hi; ++t, ++i) {
+        const int s = i % ST;
+        if (i >= ST) mbar_wait(empty(s), ((i / ST) - 1) & 1);
+        mbar_expect_tx(full(s), 2 * C::kKVBytes);
+        for (int nb = 0; nb < NB; ++nb) {
+          tma_load(k_s + s * C::kKVBytes + nb * kBoxBytes, &tm_k, full(s),
+                   nb * kBox, t * kBK, kv_head);
+          tma_load(v_s + s * C::kKVBytes + nb * kBoxBytes, &tm_v, full(s),
+                   nb * kBox, t * kBK, kv_head);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int wg = warp / 4;                   // consumer warpgroup
+  const int wq = warp % 4;                   // warp within it: rows 16 wq ..
+  const int r_lo = q0 + wg * kRows;          // the warpgroup's rows
+  const int r_hi = min(r_lo + kRows, S) - 1;
+  // this thread's two rows (accumulator rows lane / 4 and lane / 4 + 8)
+  const int row0 = r_lo + 16 * wq + lane / 4;
+  const int col0 = 2 * (lane % 4);           // first of its key / column pairs
+
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float acc[NB][32];
+#pragma unroll
+  for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[nb][i] = 0.f;
+
+  mbar_wait(q_full, 0);
+  const uint32_t q_wg = q_s + wg * NB * kBoxBytes;
+
+  // p of the previous tile, the A operand of its p v: 4 k-steps of 16 keys,
+  // each split into bf16 hi and lo parts
+  uint32_t p_hi[4][4], p_lo[4][4];
+  int prev_s = 0;                            // the previous tile's stage (its v)
+  for (int t = band.t_lo, i = 0; t <= band.t_hi; ++t, ++i) {
+    const int s = i % ST;
+    const int k0 = t * kBK;
+    mbar_wait(full(s), (i / ST) & 1);
+    // does the band give this warpgroup's rows every key of the tile?
+    // (uniform over the warpgroup).  A tile that gives them none is
+    // computed all the same, fully masked (p = 0), so that no wgmma sits
+    // in a branch: ptxas serializes wgmma on a path it cannot prove uniform.
+    const bool all = k0 + kBK - 1 < S &&
+                     k0 + kBK - 1 <= (causal ? r_lo : r_lo + window - 1) &&
+                     k0 >= r_hi - window + 1;
+
+    // S = q k^T of this tile, then O += p v of the previous one: the
+    // softmax below runs while the tensor cores do p v
+    float sc[32];
+    wg_fence();
+#pragma unroll
+    for (int kq = 0; kq < 4 * NB; ++kq) {     // 16 columns of D at a time
+      const uint32_t off = (kq / 4) * kBoxBytes + (kq % 4) * 32;
+      mma_ss(sc, desc(q_wg + off, 16), desc(k_s + s * C::kKVBytes + off, 16),
+             kq > 0);
+    }
+    wg_commit();
+    if (i > 0) issue_pv<NB>(acc, p_hi, p_lo, v_s + prev_s * C::kKVBytes);
+    wg_commit();
+    wg_wait<1>();                            // S is in
+    fence_regs(sc);
+
+    // online softmax on the accumulator: sc[4 c + 2 h + e] is row
+    // row0 + 8 h, key k0 + 8 c + col0 + e
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qp = row0 + 8 * h;
+      float mx = kNeg;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[4 * c + 2 * h + e] * scale_log2;
+          if (!all) {
+            const int kp = k0 + 8 * c + col0 + e;
+            const bool ok = kp < S && qp - kp < window && kp - qp < window &&
+                            (!causal || kp <= qp);
+            x = ok ? x : kNeg;
+          }
+          sc[4 * c + 2 * h + e] = x;
+          mx = fmaxf(mx, x);
+        }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[h], mx);
+      alpha[h] = ex2(m[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = sc[4 * c + 2 * h + e];
+          const float p = x == kNeg ? 0.f : ex2(x - m_new);
+          sc[4 * c + 2 * h + e] = p;
+          sum += p;
+        }
+      l[h] = alpha[h] * l[h] + sum;         // this thread's columns; summed at the end
+      m[h] = m_new;
+    }
+
+    wg_wait<0>();                            // the previous p v is in
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+    if (i > 0 && lane == 0) mbar_arrive(empty(prev_s));   // its k and v are read
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        acc[nb][4 * c + 0] *= alpha[0];
+        acc[nb][4 * c + 1] *= alpha[0];
+        acc[nb][4 * c + 2] *= alpha[1];
+        acc[nb][4 * c + 3] *= alpha[1];
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+        const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
+        const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
+        p_hi[kk][r] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
+        p_lo[kk][r] = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+      }
+    prev_s = s;
+  }
+  {                                          // the last tile's p v
+    wg_fence();
+    issue_pv<NB>(acc, p_hi, p_lo, v_s + prev_s * C::kKVBytes);
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb) fence_regs(acc[nb]);
+  }
+
+  // acc / (l + 1e-30), rounded once to bf16
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const float inv = 1.f / (lt + 1e-30f);
+    const int qp = row0 + 8 * h;
+    if (qp >= S) continue;
+    __nv_bfloat16* orow = o + ((size_t)head * S + qp) * D;
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int col = nb * kBox + 8 * c + col0;
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(orow + col) =
+              pack_bf16(acc[nb][4 * c + 2 * h] * inv, acc[nb][4 * c + 2 * h + 1] * inv);
+      }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found through the runtime so that the
+// library needs no -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (heads, S, D) bf16 as a 3-D map with 64 x 64 boxes and the 128-byte
+// swizzle; boxes past S (or past D, up to the padded width) read zeros
+bool make_map(CUtensorMap* map, const void* ptr, int heads, int S, int D) {
+  EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {kBox, 64, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims,
+             strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int NB>
+int launch_nb(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+              void* o, int H, int group, int S, int D, int window, int causal,
+              cudaStream_t st) {
+  static bool ready = false;
+  if (!ready) {
+    cudaError_t err = cudaFuncSetAttribute(banded_attention_wgmma<NB>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           Cfg<NB>::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  const dim3 grid((S + kBQ - 1) / kBQ, H);
+  banded_attention_wgmma<NB><<<grid, kThreads, Cfg<NB>::kSmem, st>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), S, D, group, window, causal,
+      1.4426950408889634f / sqrtf((float)D));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, int H, int H_kv,
+           int S, int D, int window, int causal, void* stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, H, S, D) || !make_map(&mk, k, H_kv, S, D) ||
+      !make_map(&mv, v, H_kv, S, D))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int G = H / H_kv;
+  // boxes of 64 columns that cover D: q k^T runs over the zero-padded width
+  if (D <= 64) return launch_nb<1>(mq, mk, mv, o, H, G, S, D, window, causal, st);
+  if (D <= 128) return launch_nb<2>(mq, mk, mv, o, H, G, S, D, window, causal, st);
+  if (D <= 192) return launch_nb<3>(mq, mk, mv, o, H, G, S, D, window, causal, st);
+  return launch_nb<4>(mq, mk, mv, o, H, G, S, D, window, causal, st);
+}
+
+}  // namespace tc
+
+// C entry points, loaded with ctypes.  q, o are contiguous (H, S, D) and
+// k, v contiguous (H_kv, S, D) device arrays of one type, H_kv dividing H;
+// 1 <= H <= 65535, S >= 1, D even and <= 256, 1 <= window <= S.  The
+// wgmma entry also needs D % 8 == 0 and 16-byte-aligned bases.  The Python
+// wrapper (kernels/block_attention.py) checks all of that and picks the
+// entry; this side only launches.  Returns cudaGetLastError() (or the
+// error of the call that set the kernel up).
 extern "C" int banded_attention_f32(const void* q, const void* k,
-                                    const void* v, void* o, int H, int S,
-                                    int D, int window, int causal,
+                                    const void* v, void* o, int H, int H_kv,
+                                    int S, int D, int window, int causal,
                                     void* stream) {
-  return launch<float>(q, k, v, o, H, S, D, window, causal, stream);
+  return launch<float>(q, k, v, o, H, H_kv, S, D, window, causal, stream);
 }
 
 extern "C" int banded_attention_bf16(const void* q, const void* k,
-                                     const void* v, void* o, int H, int S,
-                                     int D, int window, int causal,
+                                     const void* v, void* o, int H, int H_kv,
+                                     int S, int D, int window, int causal,
                                      void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, H, S, D, window, causal, stream);
+  return launch<__nv_bfloat16>(q, k, v, o, H, H_kv, S, D, window, causal,
+                               stream);
+}
+
+extern "C" int banded_attention_wgmma_bf16(const void* q, const void* k,
+                                           const void* v, void* o, int H,
+                                           int H_kv, int S, int D, int window,
+                                           int causal, void* stream) {
+  return tc::launch(q, k, v, o, H, H_kv, S, D, window, causal, stream);
 }

@@ -9,7 +9,9 @@ stale library is never loaded.  Nothing is compiled at import time.
 
 :data:`LAUNCHES` counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
-path went through the kernels.
+path went through the kernels.  A kernel whose source holds more than one
+design counts each launch a second time in :data:`VARIANT_LAUNCHES`,
+under the design it went to.
 """
 from __future__ import annotations
 
@@ -25,8 +27,21 @@ import tempfile
 LAUNCHES: dict[str, int] = {"bsmm_pairs": 0, "batched_gemm": 0,
                             "block_attention": 0}
 
+#: kernel name -> design -> launches so far, for kernels with several designs
+VARIANT_LAUNCHES: dict[str, dict[str, int]] = {
+    "block_attention": {"fma": 0, "wgmma": 0}}
+
 #: kernels of this package, each one ``csrc/<name>.cu``
 KERNELS = tuple(LAUNCHES)
+
+
+def reset_launches() -> None:
+    """Set every launch count, per kernel and per design, to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    for per in VARIANT_LAUNCHES.values():
+        for k in per:
+            per[k] = 0
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"

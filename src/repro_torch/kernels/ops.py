@@ -12,12 +12,14 @@ from __future__ import annotations
 import torch
 
 from . import ref
-from ._build import LAUNCHES
+from ._build import LAUNCHES, VARIANT_LAUNCHES
 from .batched_gemm import batched_gemm as _batched_gemm_kernel
 from .block_attention import banded_attention as _banded_attention_kernel
+from .block_attention import check_heads
 from .bsmm_pairs import bsmm_pairs as _bsmm_pairs_kernel
 
-__all__ = ["LAUNCHES", "banded_attention", "batched_gemm", "bsmm_pairs"]
+__all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "banded_attention",
+           "batched_gemm", "bsmm_pairs"]
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
@@ -56,12 +58,15 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True) -> torch.Tensor:
     """Sliding-window attention, (H, S, D) -> (H, S, D).
 
-    The reference's block contract holds on every device: square blocks
+    k and v are (H_kv, S, D) with H_kv dividing H (grouped-query
+    attention: query head h reads kv head ``h // (H // H_kv)``).  The
+    reference's block contract holds on every device: square blocks
     (``block_q == block_kv``), ``S`` a multiple of the block and
     ``window`` a multiple of ``block_kv``.  The result does not depend on
     the blocks (the mask is per element), so neither the kernel nor the
     plain version reads them.
     """
+    check_heads(q, k, v)
     s = q.shape[1]
     if block_q != block_kv:
         raise ValueError(f"banded_attention assumes square q/kv blocks, got "

@@ -51,9 +51,11 @@ def banded_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: int, causal: bool = True) -> torch.Tensor:
     """Sliding-window attention oracle.
 
-    q, k, v : (H, S, D); window counts key positions attended to the left
-    (inclusive of self): position i attends keys in [i-window+1, i]
-    (causal) or |i - j| < window (bidirectional).
+    q : (H, S, D); k, v : (H_kv, S, D) with H_kv dividing H: query head h
+    reads kv head ``h // (H // H_kv)`` (grouped-query attention; H_kv == H
+    is ordinary multi-head attention).  window counts key positions
+    attended to the left (inclusive of self): position i attends keys in
+    [i-window+1, i] (causal) or |i - j| < window (bidirectional).
 
     A dense masked softmax, entirely in float32 (scores, their 1/sqrt(D)
     scale, the softmax and ``p @ v``), cast to q's type once at the end:
@@ -63,6 +65,9 @@ def banded_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     by a few ulps.
     """
     d = q.shape[-1]
+    group = q.shape[0] // max(k.shape[0], 1)
+    if group > 1:
+        k, v = (t.repeat_interleave(group, dim=0) for t in (k, v))
     scores = torch.einsum("hqd,hkd->hqk", q.float(), k.float()) * (
         1.0 / d ** 0.5)
     mask = band_mask(q.shape[1], window, causal, device=q.device)

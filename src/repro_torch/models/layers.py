@@ -141,21 +141,20 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Each query attends the keys within ``window`` positions (to its left
     when causal): O(S * W) work.  q: (B, S, KV, G, hd); k, v: (B, S, KV,
     hd).  The heads go to :func:`repro_torch.kernels.ops.banded_attention`
-    as (B*KV*G, S, hd), with k and v copied over the G query heads of each
-    group; ``block`` only has to meet the reference's contract.
+    as q (B*KV*G, S, hd) and k, v (B*KV, S, hd): query head (b, kv, g)
+    reads kv head (b, kv), so k and v are not copied over the group.
+    ``block`` only has to meet the reference's contract.
     """
     b, s, kvh, g, hd = q.shape
     block = min(block, s)
     assert s % block == 0 and window % block == 0
-    heads = b * kvh * g
 
-    def per_head(x):                 # (B, S, KV, G, hd) -> (B*KV*G, S, hd)
-        # a copy: at B = 1 the reshape of q alone would be a strided view
-        return x.permute(0, 2, 3, 1, 4).contiguous().view(heads, s, hd)
+    def heads_first(x):     # (B, S, KV, ..., hd) -> (B*KV*..., S, hd)
+        # a copy: at B = 1 the reshape alone would be a strided view
+        x = x.movedim(1, -2).contiguous()
+        return x.view(-1, s, hd)
 
-    qh = per_head(q)
-    kh = per_head(k[:, :, :, None].expand(b, s, kvh, g, hd))
-    vh = per_head(v[:, :, :, None].expand(b, s, kvh, g, hd))
+    qh, kh, vh = heads_first(q), heads_first(k), heads_first(v)
     out = ops.banded_attention(qh, kh, vh, window=window, block_q=block,
                                block_kv=block, causal=causal)
     return out.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4)

@@ -24,17 +24,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _tol(want, bs):
-    """float32: atol 1e-4; bfloat16: 2e-2 of the largest |value| (a few
-    bf16 ulps), never looser than 5e-2*bs."""
-    if want.dtype == torch.float32:
-        return 1e-4
-    return min(2e-2 * float(want.float().abs().max()), 5e-2 * bs)
+def _within(got, want32) -> bool:
+    """Each element of a kernel's output against the plain version's
+    float32 result on the same inputs (for bfloat16, the plain version run
+    on the inputs cast to float32).  float32: atol 1e-4 (both sum in
+    float32, in other orders).  bfloat16: 2**-8 |want| + 1e-3 rms(want):
+    the kernel sums in float32 and rounds once, at the output, by at most
+    half a bf16 ulp (2**-8 of the value), and the float32 sums' order
+    stays far inside 1e-3 of the output's rms."""
+    diff = (got.float() - want32).abs()
+    if got.numel() == 0:
+        return True
+    if got.dtype == torch.float32:
+        return bool((diff <= 1e-4).all())
+    rms = want32.pow(2).mean().sqrt()
+    return bool((diff <= 2 ** -8 * want32.abs() + 1e-3 * rms).all())
+
+
+def _drop_last_k(a, b):
+    """The operands of the same products with their last k-step dropped."""
+    return a[:, :, :-1], b[:, :-1, :]
 
 
 @pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_versions(cuda_device, bs, dtype):
+    """Both multiply kernels element by element against their plain
+    versions' float32 results (:func:`_within`); the plain version with
+    the last k-step of every product dropped must miss that check."""
     rng = np.random.default_rng(bs)
     scale = bs ** -0.25           # unit-variance product entries
     a = torch.tensor(rng.standard_normal((20, bs, bs)) * scale, dtype=dtype,
@@ -53,12 +70,65 @@ def test_kernels_match_plain_versions(cuda_device, bs, dtype):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["bsmm_pairs"] == before["bsmm_pairs"] + 1
     assert ops.LAUNCHES["batched_gemm"] == before["batched_gemm"] + 1
-    want = ref.bsmm_pairs_ref(a, b, sa_t, sb_t, seg_t, 40)
+    a32, b32 = a.float(), b.float()
+    want32 = ref.bsmm_pairs_ref(a32, b32, sa_t, sb_t, seg_t, 40)
     assert got.dtype == dtype
-    assert float((got.float() - want.float()).abs().max()) <= _tol(want, bs)
+    assert _within(got, want32)
     assert bool((got[36:] == 0).all())
-    want = ref.batched_gemm_ref(a, b[:20])
-    assert float((prods.float() - want.float()).abs().max()) <= _tol(want, bs)
+    short = ref.bsmm_pairs_ref(*_drop_last_k(a, b), sa_t, sb_t, seg_t, 40)
+    assert not _within(short, want32)
+    want32 = ref.batched_gemm_ref(a32, b32[:20])
+    assert prods.dtype == dtype
+    assert _within(prods, want32)
+    assert not _within(ref.batched_gemm_ref(*_drop_last_k(a, b[:20])),
+                       want32)
+
+
+def _stack(rng, p, bs, dtype, device):
+    scale = bs ** -0.25
+    return torch.tensor(rng.standard_normal((p, bs, bs)) * scale,
+                        dtype=dtype, device=device)
+
+
+@pytest.mark.parametrize("p", [0, 1, 4, 1003])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_matches_plain_version(cuda_device, p, bs, dtype):
+    """P = 0, one product, one more than the kernel's 3 ring stages, and a
+    ragged 1003; element by element (:func:`_within`), and the last k-step
+    dropped must miss."""
+    rng = np.random.default_rng(1000 * bs + p)
+    a, b = (_stack(rng, p, bs, dtype, cuda_device) for _ in range(2))
+    before = ops.LAUNCHES["batched_gemm"]
+    got = ops.batched_gemm(a, b)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["batched_gemm"] == before + (1 if p else 0)
+    assert got.dtype == dtype and got.shape == (p, bs, bs)
+    want32 = ref.batched_gemm_ref(a.float(), b.float())
+    assert _within(got, want32)
+    if p:
+        assert not _within(ref.batched_gemm_ref(*_drop_last_k(a, b)), want32)
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batched_gemm_walks_many_steps_per_block(cuda_device, bs, dtype):
+    """Enough products (4 * 2**22 / bs**2 + 3, ragged) that every block of
+    the persistent grid walks many steps and the ring wraps many times."""
+    p = 4 * 2 ** 22 // bs ** 2 + 3
+    rng = np.random.default_rng(bs)
+    a, b = (_stack(rng, p, bs, dtype, cuda_device) for _ in range(2))
+    got = ops.batched_gemm(a, b)
+    torch.cuda.synchronize()
+    assert _within(got, ref.batched_gemm_ref(a.float(), b.float()))
+
+
+def test_batched_gemm_takes_views_off_the_16_byte_grid(cuda_device):
+    flat = torch.randn(1 + 7 * 16, device=cuda_device)
+    a = flat[1:].view(7, 4, 4)            # starts 4 bytes past the grid
+    got = ops.batched_gemm(a, a)
+    torch.cuda.synchronize()
+    assert _within(got, ref.batched_gemm_ref(a, a))
 
 
 def test_session_runs_through_the_kernels(cuda_device):
@@ -104,18 +174,48 @@ def test_banded_attention_matches_plain_version(cuda_device, causal, dtype,
     want32 = ref.banded_attention_ref(q.float(), k.float(), v.float(),
                                       window, causal=causal)
     assert got.dtype == dtype and got.shape == want32.shape
-    assert _attention_within(got, want32)
+    assert _within(got, want32)
     if window < s:
         short = ref.banded_attention_ref(q, k, v, window - 1, causal=causal)
-        assert not _attention_within(short, want32)
+        assert not _within(short, want32)
 
 
-def _attention_within(got, want32) -> bool:
-    diff = (got.float() - want32).abs()
-    if got.dtype == torch.float32:
-        return bool((diff <= 1e-4).all())
-    rms = want32.pow(2).mean().sqrt()
-    return bool((diff <= 2 ** -8 * want32.abs() + 1e-3 * rms).all())
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,h_kv,s,d,window", [
+    (8, 2, 200, 120, 64),      # the LM's GQA and hd; S a multiple of no tile
+    (8, 1, 333, 128, 128),     # one kv head for all
+    (4, 4, 130, 16, 64),       # no groups; narrow head
+    (6, 3, 257, 160, 192),     # hd 160: three 64-column boxes
+    (2, 1, 96, 64, 300),       # window > S
+])
+def test_banded_attention_kv_groups_match_plain_version(
+        cuda_device, causal, dtype, h, h_kv, s, d, window):
+    """k, v with H_kv < H heads, element by element against the plain
+    version's float32 result (:func:`_within`); bfloat16 with D % 8 == 0
+    goes to the tensor-core design, everything else to the FMA design
+    (counted per design); the window one key short must miss the check."""
+    from repro_torch.kernels import block_attention as kba
+    rng = np.random.default_rng(h * s + d)
+    q = torch.tensor(rng.standard_normal((h, s, d)), dtype=dtype,
+                     device=cuda_device)
+    k, v = (torch.tensor(rng.standard_normal((h_kv, s, d)), dtype=dtype,
+                         device=cuda_device) for _ in range(2))
+    design = "wgmma" if dtype == torch.bfloat16 and d % 8 == 0 else "fma"
+    assert kba.design_for(q, k, v) == design
+    before = dict(ops.VARIANT_LAUNCHES["block_attention"])
+    got = kba.banded_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    after = ops.VARIANT_LAUNCHES["block_attention"]
+    assert after[design] == before[design] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    want32 = ref.banded_attention_ref(q.float(), k.float(), v.float(),
+                                      window, causal=causal)
+    assert got.dtype == dtype and got.shape == want32.shape
+    assert _within(got, want32)
+    if window < s:
+        short = ref.banded_attention_ref(q, k, v, window - 1, causal=causal)
+        assert not _within(short, want32)
 
 
 def test_banded_attention_refuses_what_it_does_not_take(cuda_device):

@@ -28,7 +28,7 @@ from repro.launch import lm_serve as jserve  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.launch import lm_serve  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -141,6 +141,45 @@ class TestBandedAttentionContract:
             ops.banded_attention(q, q, q, **args)
 
 
+    @pytest.mark.parametrize("kv_heads", [1, 2, 8])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_grouped_kv_heads_equal_expanded_kv(self, kv_heads, causal):
+        """k, v with H_kv dividing H: query head h reads kv head
+        h // (H // H_kv), exactly as the same call on k, v copied over each
+        group (plain version and ops, float32 and bfloat16)."""
+        rng = np.random.default_rng(kv_heads)
+        h, s, d = 8, 64, 16
+        q = torch.tensor(_rand(rng, (h, s, d)))
+        k, v = (torch.tensor(_rand(rng, (kv_heads, s, d))) for _ in range(2))
+        g = h // kv_heads
+        ke, ve = (t.repeat_interleave(g, dim=0) for t in (k, v))
+        for dtype in (torch.float32, torch.bfloat16):
+            qd, kd, vd, ked, ved = (t.to(dtype) for t in (q, k, v, ke, ve))
+            want = ref.banded_attention_ref(qd, ked, ved, 16, causal=causal)
+            got = ref.banded_attention_ref(qd, kd, vd, 16, causal=causal)
+            assert torch.equal(got, want)
+            got = ops.banded_attention(qd, kd, vd, window=16, block_q=16,
+                                       block_kv=16, causal=causal)
+            assert got.dtype == dtype and torch.equal(got, want)
+        # and head by head against the reference's oracle on the expanded k, v
+        oracle = jref.banded_attention_ref(
+            jnp.asarray(q.numpy()), jnp.asarray(ke.numpy()),
+            jnp.asarray(ve.numpy()), 16, causal=causal)
+        np.testing.assert_allclose(
+            _np(ops.banded_attention(q, k, v, window=16, block_q=16,
+                                     block_kv=16, causal=causal)),
+            _np(oracle), atol=F32_ATOL)
+
+    @pytest.mark.parametrize("kv_shape", [(3, 48, 8), (5, 48, 8), (2, 32, 8),
+                                          (2, 48, 4), (0, 48, 8)])
+    def test_refuses_kv_heads_that_do_not_divide(self, kv_shape):
+        q = torch.zeros(4, 48, 8)
+        kv = torch.zeros(kv_shape)
+        with pytest.raises(ValueError):
+            ops.banded_attention(q, kv, kv, window=16, block_q=16,
+                                 block_kv=16)
+
+
 # ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
@@ -168,7 +207,7 @@ def test_windowed_attention_goes_through_ops_banded_attention(monkeypatch):
     def spy(q, k, v, **kw):
         # the CUDA kernel takes contiguous (H, S, D) tensors only
         assert all(t.is_contiguous() for t in (q, k, v))
-        calls.append((tuple(q.shape), kw))
+        calls.append((tuple(q.shape), tuple(k.shape), tuple(v.shape), kw))
         return real(q, k, v, **kw)
 
     monkeypatch.setattr(ops, "banded_attention", spy)
@@ -177,7 +216,10 @@ def test_windowed_attention_goes_through_ops_banded_attention(monkeypatch):
     M.forward(cfg, params, {"tokens": torch.zeros((1, 64), dtype=torch.long)})
     assert len(calls) == cfg.n_layers
     heads = cfg.n_heads
-    assert calls[0] == ((heads, 64, cfg.hd),
+    # k and v arrive with the kv heads only: no copy over the group
+    assert cfg.n_kv_heads < heads
+    assert calls[0] == ((heads, 64, cfg.hd), (cfg.n_kv_heads, 64, cfg.hd),
+                        (cfg.n_kv_heads, 64, cfg.hd),
                         dict(window=32, block_q=32, block_kv=32,
                              causal=True))
 
