@@ -218,6 +218,49 @@ def test_banded_attention_kv_groups_match_plain_version(
         assert not _within(short, want32)
 
 
+@pytest.mark.parametrize("s,window,causal", [
+    (1, 1, True), (63, 1, False), (63, 63, False), (65, 2, True),
+    (129, 64, False), (300, 128, False)])
+@pytest.mark.parametrize("d", [8, 120])
+def test_banded_attention_tensor_core_edges(cuda_device, s, window, causal,
+                                            d):
+    """The wgmma design at the edges of its tiles: one row, a window of
+    one key, S just under, at and over one 64-row tile and one 128-row
+    block, and a bidirectional band wider than a block."""
+    from repro_torch.kernels import block_attention as kba
+    rng = np.random.default_rng(s * window + d)
+    q = torch.tensor(rng.standard_normal((4, s, d)), dtype=torch.bfloat16,
+                     device=cuda_device)
+    k, v = (torch.tensor(rng.standard_normal((2, s, d)),
+                         dtype=torch.bfloat16, device=cuda_device)
+            for _ in range(2))
+    before = ops.VARIANT_LAUNCHES["block_attention"]["wgmma"]
+    got = kba.banded_attention(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["block_attention"]["wgmma"] == before + 1
+    want32 = ref.banded_attention_ref(q.float(), k.float(), v.float(),
+                                      window, causal=causal)
+    assert _within(got, want32)
+
+
+def test_banded_attention_unaligned_bf16_goes_to_the_fma_design(
+        cuda_device):
+    """A bf16 view that starts off the 16-byte grid cannot be a TMA tensor
+    map: the wrapper sends it to the FMA design, which takes it."""
+    from repro_torch.kernels import block_attention as kba
+    flat = torch.randn(1 + 2 * 96 * 16, device=cuda_device).to(
+        torch.bfloat16)
+    q = flat[1:].view(2, 96, 16)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    assert kba.design_for(q, q, q) == "fma"
+    before = dict(ops.VARIANT_LAUNCHES["block_attention"])
+    got = kba.banded_attention(q, q, q, window=32)
+    torch.cuda.synchronize()
+    assert ops.VARIANT_LAUNCHES["block_attention"]["fma"] == before["fma"] + 1
+    want32 = ref.banded_attention_ref(q.float(), q.float(), q.float(), 32)
+    assert _within(got, want32)
+
+
 def test_banded_attention_refuses_what_it_does_not_take(cuda_device):
     from repro_torch.kernels import block_attention as kba
     q = torch.zeros((1, 64, 16), device=cuda_device)
