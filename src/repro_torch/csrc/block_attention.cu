@@ -66,6 +66,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 
@@ -572,39 +573,40 @@ banded_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     fence_regs(sc);
 
     // online softmax on the accumulator: sc[4 c + 2 h + e] is row
-    // row0 + 8 h, key k0 + 8 c + col0 + e
+    // row0 + 8 h, key k0 + 8 c + col0 + e.  m is kept prescaled by
+    // log2(e) / sqrt(D), so p = 2^(s scale - m) is one FMA and one ex2; a
+    // masked score reads -inf, which leaves m (never below -1e30) as it is
+    // and gives p = 0.
     float alpha[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int qp = row0 + 8 * h;
-      float mx = kNeg;
+      float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < 8; ++c)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          float x = sc[4 * c + 2 * h + e] * scale_log2;
+          float& x = sc[4 * c + 2 * h + e];
           if (!all) {
             const int kp = k0 + 8 * c + col0 + e;
             const bool ok = kp < S && qp - kp < window && kp - qp < window &&
                             (!causal || kp <= qp);
-            x = ok ? x : kNeg;
+            x = ok ? x : -INFINITY;
           }
-          sc[4 * c + 2 * h + e] = x;
           mx = fmaxf(mx, x);
         }
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx);
+      const float m_new = fmaxf(m[h], mx * scale_log2);
       alpha[h] = ex2(m[h] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < 8; ++c)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float x = sc[4 * c + 2 * h + e];
-          const float p = x == kNeg ? 0.f : ex2(x - m_new);
-          sc[4 * c + 2 * h + e] = p;
-          sum += p;
+          float& x = sc[4 * c + 2 * h + e];
+          x = ex2(fmaf(x, scale_log2, -m_new));
+          sum += x;
         }
       l[h] = alpha[h] * l[h] + sum;         // this thread's columns; summed at the end
       m[h] = m_new;
@@ -628,10 +630,11 @@ banded_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
         const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
-        const __nv_bfloat16 h0 = __float2bfloat16_rn(x0);
-        const __nv_bfloat16 h1 = __float2bfloat16_rn(x1);
-        p_hi[kk][r] = pack_bf16(__bfloat162float(h0), __bfloat162float(h1));
-        p_lo[kk][r] = pack_bf16(x0 - __bfloat162float(h0), x1 - __bfloat162float(h1));
+        __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+        const float2 back = __bfloat1622float2(hi);
+        __nv_bfloat162 lo = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+        p_hi[kk][r] = *reinterpret_cast<uint32_t*>(&hi);
+        p_lo[kk][r] = *reinterpret_cast<uint32_t*>(&lo);
       }
     prev_s = s;
   }
