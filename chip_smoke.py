@@ -8,12 +8,17 @@ through the entry points a user calls, on the card:
 
 1. build   — compile every CUDA kernel of the path from ``repro_torch/csrc``
              with nvcc for sm_90a (one nvcc per source, in parallel) into
-             ``build/kernels/``; print the build time and ptxas report.
+             ``build/kernels/``; print the build time and, per compiled
+             kernel, ptxas's registers, shared memory, stack and spills and
+             its performance notes (wgmma serialization).
 2. kernels — hold each kernel's wrapper against its plain PyTorch version
-             on the card: bs 4..64, float32 and bfloat16, odd P, P = 0,
-             dropped pairs, unvisited slots, one case with >= 1e5 pairs.
-             Tolerance: float32 atol 1e-4; bfloat16 atol 2e-2 of the
-             largest |value| compared (a few bf16 ulps), at most 5e-2*bs.
+             on the card: bs 4..64, float32 and bfloat16, P = 0, 1, 4 and
+             1003, dropped pairs, unvisited slots, one case with >= 1e5
+             pairs.  Each element against the plain version's float32
+             result: float32 atol 1e-4; bfloat16 2**-8 |want| + 1e-3
+             rms(want) (the plain version run on the inputs cast to
+             float32); the plain version with the last k-step of every
+             product dropped must miss that check.
 3. main    — ``repro_torch.Session(engine="torch")`` at the paper's scale:
              banded ``A @ B`` (n = 65536), S2 overlap ``S.sym_square()``
              (32768 particles), random ``A.T @ B``, and banded again under
@@ -27,24 +32,29 @@ lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              window 4096, bf16), weights from ``init_params`` with a
              seeded generator on the card.  The attention kernel against
              its plain version at small shapes (float32 and bfloat16,
-             causal and bidirectional); the smoke config's prefill on the
-             card against the same prefill on the CPU; a prefill of
-             1 x 32768 seeded tokens (the ``prefill_32k`` shape with the
-             batch cut from 32 to 1), which must launch ``banded_attention``
-             once per layer and give finite logits; the kernel against its
+             causal and bidirectional, k and v with as many heads as q or
+             fewer; each call must reach the design its inputs select:
+             bfloat16 with D % 8 == 0 the tensor-core ``wgmma`` design,
+             else the FMA design); the smoke config's prefill on the card
+             against the same prefill on the CPU; a prefill of 1 x 32768
+             seeded tokens (the ``prefill_32k`` shape with the batch cut
+             from 32 to 1), which must launch ``banded_attention`` once per
+             layer, every launch on the ``wgmma`` design with k and v of
+             the 8 kv heads, and give finite logits; the kernel against its
              plain version on layer 0's real q, k, v, head by head, and its
              time beside its bound, the plain version's and
-             ``scaled_dot_product_attention`` with a band mask (a yardstick
-             the port never calls); ``lm_serve.generate`` at batch 4,
-             prompt 32, gen 16, every token in [0, vocab).  The attention
-             kernel is held element by element against the plain version's
-             float32 result: float32 atol 1e-4, bfloat16 2**-8 |want| +
-             1e-3 rms(want); on layer 0 the plain version with the band one
-             64-key tile short must fail that check.
+             ``scaled_dot_product_attention`` with a band mask on k and v
+             copied over each group beforehand (a yardstick the port never
+             calls); ``lm_serve.generate`` at batch 4, prompt 32, gen 16,
+             every token in [0, vocab).  The attention kernel is held
+             element by element against the plain version's float32
+             result (the rule of phase 2); on layer 0 the plain version
+             with the band one 64-key tile short must fail that check.
 4. report  — per phase the engine's wave stats and launch counts; per
              kernel its time on the card at the main path's largest wave
-             (CUDA events), its bound, the plain version's time and the
-             library yardstick's (``torch.bmm``, ``scaled_dot_product_
+             (CUDA events), its bound, its achieved bytes/s and FLOP/s and
+             share of the bound, the plain version's time and the library
+             yardstick's (``torch.bmm``, ``scaled_dot_product_
              attention``); the card's name and power limit.  Each kernel
              is also held against its plain version on that same wave, at
              the tolerance of phase 2.
@@ -91,6 +101,17 @@ def log(*a) -> None:
     print(*a, flush=True)
 
 
+def reset_counts() -> None:
+    """Every launch count to 0, per kernel and per design."""
+    from repro_torch.kernels import _build
+    _build.reset_launches()
+
+
+def variant_counts() -> dict:
+    from repro_torch.kernels import _build
+    return {k: dict(v) for k, v in _build.VARIANT_LAUNCHES.items()}
+
+
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
@@ -129,22 +150,49 @@ def max_err(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
 
-def tolerance(torch, want, bs: int) -> float:
-    """float32: atol 1e-4.  bfloat16: 2e-2 of the largest |value| of the
-    plain version (a bf16 ulp is at most 2**-7 of a value, so two
-    roundings apart stay well inside), never looser than 5e-2*bs."""
-    if want.dtype == torch.float32:
-        return 1e-4
-    top = float(want.float().abs().max()) if want.numel() else 0.0
-    return min(2e-2 * top, 5e-2 * bs)
+def check_elementwise(torch, what, got, want32) -> float:
+    """Each element of a kernel's output against the plain version's
+    float32 result ``want32`` on the same inputs (for bfloat16, the plain
+    version run on the inputs cast to float32); returns the max abs error
+    and raises on a miss.
+
+    float32: atol 1e-4 (both sum in float32, in other orders).
+    bfloat16: |got - want32| <= 2**-8 |want32| + 1e-3 rms(want32).  The
+    kernels keep float32 inside and round once, at the output, which moves
+    a value by at most half a bf16 ulp, 2**-8 of it; 1e-3 of the output's
+    rms covers the float32 sums taken in another order.  A missing k-step
+    or kv tile, or a wrong window edge, moves outputs by far more."""
+    if got.shape != want32.shape:
+        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
+                             f"{tuple(want32.shape)}")
+    if got.numel() == 0:
+        return 0.0
+    diff = (got.float() - want32).abs()
+    if got.dtype == torch.float32:
+        tol, rule = torch.full_like(want32, 1e-4), "atol 1e-4"
+    else:
+        rms = float(want32.pow(2).mean().sqrt())
+        tol = 2 ** -8 * want32.abs() + 1e-3 * rms
+        rule = f"2**-8 |want| + 1e-3 rms(want), rms {rms:.4g}"
+    excess = (diff - tol).flatten()
+    i = int(excess.argmax())
+    if float(excess[i]) > 0:
+        raise AssertionError(
+            f"{what}: |got - want| {float(diff.flatten()[i]):.4g} > "
+            f"tolerance {float(tol.flatten()[i]):.4g} ({rule}) at flat index "
+            f"{i}; max abs err {float(diff.max()):.4g}")
+    return float(diff.max())
 
 
-def check_close(torch, what, got, want, bs: int) -> float:
-    """Max abs error of ``got`` against ``want``; raises past tolerance."""
-    err, tol = max_err(torch, got, want), tolerance(torch, want, bs)
-    if not err <= tol:
-        raise AssertionError(f"{what}: max abs err {err} > {tol}")
-    return err
+def must_fail(torch, what, short, want32) -> str:
+    """The check's power: ``short`` (a plain version with part of the work
+    dropped) must miss :func:`check_elementwise`; returns the miss."""
+    try:
+        check_elementwise(torch, what, short, want32)
+    except AssertionError as e:
+        return str(e)
+    raise AssertionError(f"{what} passes the check: the tolerance is too "
+                         f"loose")
 
 
 def pairs_case(torch, rng, cap_a, cap_b, cap_c, n_pairs, bs, dtype,
@@ -187,11 +235,16 @@ def check_kernels(torch, ops, ref) -> dict:
                     unvisited=unv, invalid=inv)
                 got = ops.bsmm_pairs(a, b, sa, sb, seg, cap_c=cap_c)
                 torch.cuda.synchronize()
-                want = ref.bsmm_pairs_ref(
-                    a, b, sa.clamp(0, cap_a - 1), sb.clamp(0, cap_b - 1),
-                    seg, cap_c)
-                err = check_close(torch, f"bsmm_pairs bs={bs} {dtype} "
-                                  f"P={n_pairs}", got, want, bs)
+                sa_c, sb_c = sa.clamp(0, cap_a - 1), sb.clamp(0, cap_b - 1)
+                want32 = ref.bsmm_pairs_ref(a.float(), b.float(), sa_c, sb_c,
+                                            seg, cap_c)
+                what = f"bsmm_pairs bs={bs} {dtype} P={n_pairs}"
+                err = check_elementwise(torch, what, got, want32)
+                if n_pairs > inv:
+                    must_fail(torch, what + " with the last k-step dropped",
+                              ref.bsmm_pairs_ref(a[:, :, :-1], b[:, :-1],
+                                                 sa_c, sb_c, seg, cap_c),
+                              want32)
                 if unv and bool((got[cap_c - unv:] != 0).any()):
                     raise AssertionError(
                         f"bsmm_pairs bs={bs} {dtype}: unvisited slots not 0")
@@ -200,16 +253,20 @@ def check_kernels(torch, ops, ref) -> dict:
                                           else 0.0)
                 log(f"  bsmm_pairs   bs={bs:2d} {str(dtype):14s} "
                     f"P={n_pairs:6d} cap_c={cap_c:5d} max_abs_err={err:.3g}")
-            for p in (1003, 0, 5):
+            for p in (1003, 0, 1, 4):
                 a = torch.tensor(rng.standard_normal((p, bs, bs)),
                                  dtype=dtype, device="cuda")
                 b = torch.tensor(rng.standard_normal((p, bs, bs)),
                                  dtype=dtype, device="cuda")
                 got = ops.batched_gemm(a, b)
                 torch.cuda.synchronize()
-                err = check_close(torch, f"batched_gemm bs={bs} {dtype} "
-                                  f"P={p}", got, ref.batched_gemm_ref(a, b),
-                                  bs)
+                want32 = ref.batched_gemm_ref(a.float(), b.float())
+                what = f"batched_gemm bs={bs} {dtype} P={p}"
+                err = check_elementwise(torch, what, got, want32)
+                if p:
+                    must_fail(torch, what + " with the last k-step dropped",
+                              ref.batched_gemm_ref(a[:, :, :-1], b[:, :-1]),
+                              want32)
                 worst["batched_gemm"] = max(worst["batched_gemm"],
                                             err if dtype == torch.float32
                                             else 0.0)
@@ -350,7 +407,8 @@ class Capture:
 def time_kernel(torch, ref, name, args, kw) -> dict:
     """Kernel, plain version and ``torch.bmm`` yardstick on one wave's
     inputs (CUDA events), the kernel's error against its plain version
-    (raises past the tolerance of :func:`tolerance`), and its bound: the larger of the bytes it must move (each input read
+    (raises past the tolerance of :func:`check_elementwise`), and its
+    bound: the larger of the bytes it must move (each input read
     once, each output written once) over the HBM rate and the FLOPs these
     inputs need over the float32 peak."""
     from repro_torch.kernels import batched_gemm as kbg
@@ -383,16 +441,25 @@ def time_kernel(torch, ref, name, args, kw) -> dict:
         kern = lambda: kbg.batched_gemm(ga, gb)  # noqa: E731
         plain = lambda: ref.batched_gemm_ref(ga, gb)  # noqa: E731
         shape = {"products": int(p), "bs": bs, "dtype": str(ga.dtype)}
-    err = check_close(torch, f"{name} on the main path's wave {shape}",
-                      kern(), plain(), bs)
+    err = check_elementwise(torch, f"{name} on the main path's wave "
+                            f"{shape}", kern(), plain())
     bms, by = bound_ms(n_bytes, flops)
     out = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain,
                                                            reps=5),
            "library_ms": cuda_ms(torch, lambda: torch.bmm(ga, gb)),
            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
            "bytes": n_bytes, "flops": flops, "shape": shape}
+    out.update(rates(out))
     del ga, gb
     return out
+
+
+def rates(tm) -> dict:
+    """Achieved bytes/s and FLOP/s of a timing, and its share of the bound
+    (bound_ms / ms)."""
+    return {"achieved_tb_per_s": tm["bytes"] / tm["ms"] / 1e9,
+            "achieved_tflop_per_s": tm["flops"] / tm["ms"] / 1e9,
+            "share_of_bound": tm["bound_ms"] / tm["ms"]}
 
 
 def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
@@ -409,8 +476,7 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
                    leaf_n=LEAF_N, bs=BS)
     mats = build(sess)
     t_build = time.perf_counter() - t0
-    for k in launches:
-        launches[k] = 0
+    reset_counts()
     t1 = time.perf_counter()
     with Capture(ops) as cap:
         c = op(*mats)
@@ -438,6 +504,9 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
         log(f"    {kname}: ms={tm['ms']:.4f} plain_ms={tm['plain_ms']:.4f} "
             f"library_ms={tm['library_ms']:.4f} "
             f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}) "
+            f"{tm['achieved_tb_per_s']:.3f} TB/s "
+            f"{tm['achieved_tflop_per_s']:.2f} TFLOP/s "
+            f"share_of_bound={tm['share_of_bound']:.3f} "
             f"max_abs_err={tm['max_abs_err']:.3g} {tm['shape']}")
     log(f"    card: {gpu_name_and_limit()}")
     return summary
@@ -529,52 +598,27 @@ def plain32(ref, q, k, v, window, causal):
                                     causal=causal)
 
 
-def check_attention(torch, what, got, want32) -> float:
-    """Each element of the kernel's output against the plain version's
-    float32 result ``want32`` on the same inputs; returns the max abs
-    error and raises on a miss.
-
-    float32: atol 1e-4 (both sum in float32, in other orders).
-    bfloat16: |got - want32| <= 2**-8 |want32| + 1e-3 rms(want32).  The
-    kernel keeps float32 inside and rounds once, at the output, which
-    moves a value by at most half a bf16 ulp, 2**-8 of it; 1e-3 of the
-    output's rms covers the float32 sums taken in another order.  A
-    missing kv tile or a wrong window edge moves outputs by far more."""
-    if got.shape != want32.shape:
-        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
-                             f"{tuple(want32.shape)}")
-    diff = (got.float() - want32).abs()
-    if got.numel() == 0:
-        return 0.0
-    if got.dtype == torch.float32:
-        tol, rule = torch.full_like(want32, 1e-4), "atol 1e-4"
-    else:
-        rms = float(want32.pow(2).mean().sqrt())
-        tol = 2 ** -8 * want32.abs() + 1e-3 * rms
-        rule = f"2**-8 |want| + 1e-3 rms(want), rms {rms:.4g}"
-    excess = (diff - tol).flatten()
-    i = int(excess.argmax())
-    if float(excess[i]) > 0:
-        raise AssertionError(
-            f"{what}: |got - want| {float(diff.flatten()[i]):.4g} > "
-            f"tolerance {float(tol.flatten()[i]):.4g} ({rule}) at flat index "
-            f"{i}; max abs err {float(diff.max()):.4g}")
-    return float(diff.max())
-
-
 def check_attention_small(torch, ops, ref) -> float:
-    """The attention kernel against its plain version at small shapes;
-    returns the worst error."""
+    """The attention kernel against its plain version at small shapes, k
+    and v with as many heads as q or fewer, each call on the design its
+    inputs select (bfloat16 with D % 8 == 0: wgmma; else fma); returns the
+    worst error."""
+    from repro_torch.kernels import block_attention as kba
     rng = np.random.default_rng(1)
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for causal in (True, False):
-            for h, s, d, window, block in ((4, 512, 120, 128, 64),
-                                           (3, 96, 16, 32, 32),
-                                           (2, 160, 160, 64, 32)):
-                q, k, v = (torch.tensor(rng.standard_normal((h, s, d)),
-                                        dtype=dtype, device="cuda")
-                           for _ in range(3))
+            for h, h_kv, s, d, window, block in (
+                    (4, 4, 512, 120, 128, 64), (3, 3, 96, 16, 32, 32),
+                    (2, 2, 160, 160, 64, 32), (8, 2, 384, 120, 128, 64),
+                    (4, 1, 256, 128, 64, 64)):
+                q = torch.tensor(rng.standard_normal((h, s, d)), dtype=dtype,
+                                 device="cuda")
+                k, v = (torch.tensor(rng.standard_normal((h_kv, s, d)),
+                                     dtype=dtype, device="cuda")
+                        for _ in range(2))
+                design = kba.design_for(q, k, v)
+                before = variant_counts()["block_attention"][design]
                 got = ops.banded_attention(q, k, v, window=window,
                                            block_q=block, block_kv=block,
                                            causal=causal)
@@ -582,14 +626,17 @@ def check_attention_small(torch, ops, ref) -> float:
                 if got.dtype != dtype:
                     raise AssertionError(f"banded_attention gave {got.dtype}"
                                          f" for {dtype}")
-                err = check_attention(
-                    torch, f"banded_attention {(h, s, d)} window={window} "
-                    f"causal={causal} {dtype}", got,
+                if variant_counts()["block_attention"][design] != before + 1:
+                    raise AssertionError(f"banded_attention {dtype} D={d} did "
+                                         f"not launch the {design} design")
+                err = check_elementwise(
+                    torch, f"banded_attention {(h, h_kv, s, d)} "
+                    f"window={window} causal={causal} {dtype}", got,
                     plain32(ref, q, k, v, window, causal))
                 worst = max(worst, err)
-                log(f"  banded_attention H={h} S={s:4d} D={d:3d} "
+                log(f"  banded_attention H={h} H_kv={h_kv} S={s:4d} D={d:3d} "
                     f"window={window:3d} causal={causal!s:5s} "
-                    f"{str(dtype):14s} max_abs_err={err:.3g}")
+                    f"{str(dtype):14s} {design:5s} max_abs_err={err:.3g}")
     return worst
 
 
@@ -616,11 +663,13 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
     if out.dtype != q.dtype:
         raise AssertionError(f"banded_attention gave {out.dtype} for "
                              f"{q.dtype}")
+    g = h // k.shape[0]                 # query heads a kv head
     err = 0.0
     for i in range(h):
-        want32 = plain32(ref, q[i:i + 1], k[i:i + 1], v[i:i + 1], window,
+        j = i // g
+        want32 = plain32(ref, q[i:i + 1], k[j:j + 1], v[j:j + 1], window,
                          causal)
-        err = max(err, check_attention(
+        err = max(err, check_elementwise(
             torch, f"banded_attention on layer 0, head {i}", out[i:i + 1],
             want32))
         if i == 0:
@@ -628,43 +677,45 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
             # tile short, rounded like the kernel, must miss it
             short = ref.banded_attention_ref(
                 q[:1], k[:1], v[:1], window - SHORT_BY, causal=causal)
-            try:
-                check_attention(torch, "band one tile short", short, want32)
-            except AssertionError as e:
-                log(f"    the band {SHORT_BY} keys short fails the check, "
-                    f"as it must: {e}")
-            else:
-                raise AssertionError(
-                    f"banded_attention check on layer 0 passes a band "
-                    f"{SHORT_BY} keys short: the tolerance is too loose")
+            log(f"    the band {SHORT_BY} keys short fails the check, as it "
+                f"must: " + must_fail(torch, "band one tile short", short,
+                                      want32))
             del short
         del want32
     del out
 
     def plain():
         for i in range(h):
-            ref.banded_attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
-                                     window, causal=causal)
+            ref.banded_attention_ref(q[i:i + 1], k[i // g:i // g + 1],
+                                     v[i // g:i // g + 1], window,
+                                     causal=causal)
 
     pairs = band_pairs(s, window, causal)
     flops = 4.0 * d * pairs * h                 # q k^T and p v
-    n_bytes = 4 * q.numel() * q.element_size()  # q, k, v read; o written
+    # q and k, v read once, o written once
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     bms, by = bound_ms(n_bytes, flops, peak)
     res = {"ms": cuda_ms(torch, kern, reps=5, warmup=1),
            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
            "bytes": n_bytes, "flops": flops, "band_pairs_per_head": pairs,
-           "shape": {"heads": h, "seq": s, "head_dim": d, "window": window,
-                     "causal": causal, "dtype": str(q.dtype)}}
-    # the yardstick at the largest S that fits, down to S / 8; the
-    # kernels row carries it only when it ran at the kernel's S
+           "design": kba.design_for(q, k, v),
+           "shape": {"heads": h, "kv_heads": int(k.shape[0]), "seq": s,
+                     "head_dim": d, "window": window, "causal": causal,
+                     "dtype": str(q.dtype)}}
+    res.update(rates(res))
+    # the yardstick at the largest S that fits, down to S / 8, on k and v
+    # copied over each group beforehand (outside the timing, as for the
+    # pre-gathered pairs of torch.bmm); the kernels row carries it only
+    # when it ran at the kernel's S
     res["library_ms"] = res["library_seq"] = res["library_ms_at_seq"] = None
+    ke, ve = (t.repeat_interleave(g, dim=0) for t in (k, v))
     n = s
     while n >= s // 8:
         try:
             mask = ref.band_mask(n, window, causal, device=q.device)
-            qs, ks, vs = (t[None, :, :n] for t in (q, k, v))
+            qs, ks, vs = (t[None, :, :n] for t in (q, ke, ve))
             res["library_ms_at_seq"] = cuda_ms(
                 torch, lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, attn_mask=mask), reps=3, warmup=1)
@@ -679,26 +730,9 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
         finally:
             mask = qs = ks = vs = None
             torch.cuda.empty_cache()
+    del ke, ve
+    torch.cuda.empty_cache()
     return res
-
-
-def gqa_expand_ms(torch, k, v, kv_heads) -> float:
-    """Device time of ``windowed_attention``'s copy of k and v over the
-    query heads of each group, from the (B, S, KV, hd) layout."""
-    h, s, d = k.shape
-    g = h // kv_heads
-
-    def orig(t):                       # (H, S, hd) -> (1, S, KV, hd)
-        return t.view(kv_heads, g, s, d)[:, 0].permute(1, 0, 2)[None] \
-            .contiguous()
-
-    ko, vo = orig(k), orig(v)
-
-    def expand():
-        for t in (ko, vo):
-            t[:, :, :, None].expand(1, s, kv_heads, g, d) \
-                .permute(0, 2, 3, 1, 4).reshape(h, s, d)
-    return cuda_ms(torch, expand, reps=5)
 
 
 def lm_phase(torch, ops, ref, launches) -> dict:
@@ -745,19 +779,20 @@ def lm_phase(torch, ops, ref, launches) -> dict:
         M.forward(cfg, params, {"tokens": tokens[:, :s // 4]})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for k in launches:
-            launches[k] = 0
+        reset_counts()
         with Capture(ops, ("banded_attention",)) as cap:
             t0 = time.perf_counter()
             logits, _ = M.forward(cfg, params, {"tokens": tokens})
             torch.cuda.synchronize()
             prefill_s = time.perf_counter() - t0
         counts = dict(launches)
-        if counts["block_attention"] != cfg.n_layers:
+        designs = variant_counts()["block_attention"]
+        if counts["block_attention"] != cfg.n_layers or \
+                designs["wgmma"] != cfg.n_layers:
             raise AssertionError(
                 f"prefill launched banded_attention "
-                f"{counts['block_attention']} times, not once per layer "
-                f"({cfg.n_layers})")
+                f"{counts['block_attention']} times ({designs}), not once per "
+                f"layer ({cfg.n_layers}) on the wgmma design")
         if logits.shape != (b, s, cfg.vocab) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
@@ -766,15 +801,22 @@ def lm_phase(torch, ops, ref, launches) -> dict:
         out["prefill"] = {"batch": b, "tokens": s, "seconds": prefill_s,
                           "tokens_per_s": b * s / prefill_s,
                           "peak_mem_gb": torch.cuda.max_memory_allocated()
-                          / 1e9, "launches": counts}
+                          / 1e9, "launches": counts,
+                          "attention_designs": designs}
         log(f"  prefill {b} x {s}: {prefill_s:.3f} s, "
-            f"{b * s / prefill_s:.1f} tokens/s, launches {counts}")
+            f"{b * s / prefill_s:.1f} tokens/s, launches {counts}, "
+            f"banded_attention designs {designs}")
         torch.cuda.empty_cache()
 
         _, (q, k, v), kw = cap.calls.pop("banded_attention")
+        # k and v reach the kernel with the kv heads only, not copied over
+        # each group of query heads
+        if q.shape[0] != b * cfg.n_heads or k.shape[0] != b * cfg.n_kv_heads \
+                or v.shape != k.shape:
+            raise AssertionError(f"banded_attention got q {tuple(q.shape)}, "
+                                 f"k {tuple(k.shape)}, v {tuple(v.shape)}")
         tm = time_attention(torch, ref, q, k, v, kw["window"],
                             kw["causal"])
-        tm["gqa_expand_ms"] = gqa_expand_ms(torch, k, v, cfg.n_kv_heads)
         tm["prefill_share"] = tm["ms"] * cfg.n_layers / 1e3 / prefill_s
         out["timing"] = {"banded_attention": tm}
         del q, k, v
@@ -782,16 +824,16 @@ def lm_phase(torch, ops, ref, launches) -> dict:
             f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']} "
             f"(sdpa {tm['library_ms_at_seq']} ms at S={tm['library_seq']}) "
             f"bound_ms={tm['bound_ms']:.4f} "
-            f"({tm['bound_by']}) max_abs_err={tm['max_abs_err']:.3g} "
-            f"gqa_expand_ms={tm['gqa_expand_ms']:.4f} "
+            f"({tm['bound_by']}) {tm['achieved_tflop_per_s']:.1f} TFLOP/s "
+            f"share_of_bound={tm['share_of_bound']:.3f} "
+            f"design={tm['design']} max_abs_err={tm['max_abs_err']:.3g} "
             f"prefill_share={tm['prefill_share']:.3f} {tm['shape']}")
 
     bs, plen, n_gen = LM_SERVE
     prompts = np.random.default_rng(3).integers(
         0, cfg.vocab, (bs, plen)).astype(np.int32)
     lm_serve.generate(cfg, params, prompts[:, :2], 2, 4)      # warm-up
-    for k in launches:
-        launches[k] = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     toks_out = lm_serve.generate(cfg, params, prompts, n_gen, plen + n_gen)
@@ -817,6 +859,12 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 # phase 4: report
 # ---------------------------------------------------------------------------
 
+#: the design of each kernel that the report's row measures: the PR that
+#: last redesigned it, and for banded_attention the design its bf16 calls
+#: take
+DESIGN = {"bsmm_pairs": "pr11", "batched_gemm": "pr13",
+          "banded_attention": "pr13-wgmma"}
+
 #: the phase whose run gives each kernel's headline row
 HEADLINE = {"bsmm_pairs": "banded", "batched_gemm": "banded_gemm",
             "banded_attention": "lm"}
@@ -836,8 +884,40 @@ def kernel_rows(phases, launches_total, worst) -> list:
                      "max_abs_err": err,
                      "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                      "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-                     "library_ms": tm["library_ms"]})
+                     "library_ms": tm["library_ms"],
+                     "share_of_bound": tm["share_of_bound"],
+                     "design": DESIGN[name]})
     return rows
+
+
+def ptxas_summary(text: str) -> list:
+    """One line per compiled kernel from nvcc's ``-Xptxas -v`` output:
+    registers, shared memory, stack and spills, and ptxas's performance
+    notes (wgmma serialization and the like)."""
+    import re
+    lines, name, spill = [], None, ""
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(bsmm_pairs_kernel|"
+                      r"batched_gemm_kernel|banded_attention_kernel|"
+                      r"banded_attention_wgmma)I(\w*?)EE", ln)
+        if m:
+            args = re.findall(r"Li(\d+)E", m.group(2) + "E")
+            if "bfloat16" in m.group(2):
+                args.append("bf16")
+            elif m.group(2).endswith("f"):
+                args.append("f32")
+            name = f"{m.group(1)}<{', '.join(args)}>"
+        elif "spill stores" in ln and name:
+            spill = ln.strip()
+        elif "Used" in ln and "registers" in ln and name:
+            lines.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+            name = None
+        elif re.search(r"\(C7\d+\)|error|warning", ln):
+            sym = re.search(r"(banded_attention_wgmma)ILi(\d+)E", ln)
+            lines.append(re.sub(r" (in|for) (the )?function '\w+'",
+                                f" in {sym.group(1)}<{sym.group(2)}>"
+                                if sym else "", ln.strip()))
+    return lines
 
 
 def gpu_name_and_limit() -> str:
@@ -869,8 +949,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build()
     for name, text in logs.items():
-        log(f"  nvcc {name}:\n" + "\n".join("    " + ln for ln in
-                                           text.strip().splitlines()))
+        log(f"  nvcc {name}:\n" + "\n".join(
+            "    " + ln for ln in ptxas_summary(text)))
     for name in _build.KERNELS:
         _build.load(name)
     log(f"  build_s={time.perf_counter() - t0:.3f}")

@@ -90,13 +90,17 @@ def _stack(rng, p, bs, dtype, device):
                         dtype=dtype, device=device)
 
 
-@pytest.mark.parametrize("p", [0, 1, 4, 1003])
+@pytest.mark.parametrize("p", [0, 1, 4, 1003, "many"])
 @pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_batched_gemm_matches_plain_version(cuda_device, p, bs, dtype):
-    """P = 0, one product, one more than the kernel's 3 ring stages, and a
-    ragged 1003; element by element (:func:`_within`), and the last k-step
-    dropped must miss."""
+    """P = 0, one product, one more than the kernel's 3 ring stages, a
+    ragged 1003, and "many" (4 * 2**22 / bs**2 + 3: every block of the
+    persistent grid walks many steps and its ring wraps many times);
+    element by element (:func:`_within`), and the last k-step dropped
+    must miss."""
+    if p == "many":
+        p = 4 * 2 ** 22 // bs ** 2 + 3
     rng = np.random.default_rng(1000 * bs + p)
     a, b = (_stack(rng, p, bs, dtype, cuda_device) for _ in range(2))
     before = ops.LAUNCHES["batched_gemm"]
@@ -108,19 +112,6 @@ def test_batched_gemm_matches_plain_version(cuda_device, p, bs, dtype):
     assert _within(got, want32)
     if p:
         assert not _within(ref.batched_gemm_ref(*_drop_last_k(a, b)), want32)
-
-
-@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_batched_gemm_walks_many_steps_per_block(cuda_device, bs, dtype):
-    """Enough products (4 * 2**22 / bs**2 + 3, ragged) that every block of
-    the persistent grid walks many steps and the ring wraps many times."""
-    p = 4 * 2 ** 22 // bs ** 2 + 3
-    rng = np.random.default_rng(bs)
-    a, b = (_stack(rng, p, bs, dtype, cuda_device) for _ in range(2))
-    got = ops.batched_gemm(a, b)
-    torch.cuda.synchronize()
-    assert _within(got, ref.batched_gemm_ref(a.float(), b.float()))
 
 
 def test_batched_gemm_takes_views_off_the_16_byte_grid(cuda_device):
@@ -188,6 +179,10 @@ def test_banded_attention_matches_plain_version(cuda_device, causal, dtype,
     (4, 4, 130, 16, 64),       # no groups; narrow head
     (6, 3, 257, 160, 192),     # hd 160: three 64-column boxes
     (2, 1, 96, 64, 300),       # window > S
+    # the wgmma design at the edges of its tiles: one row, a window of one
+    # key, S just under, at and over one 64-row tile and one 128-row block
+    (4, 2, 1, 8, 1), (4, 2, 63, 8, 1), (4, 2, 63, 120, 63),
+    (4, 2, 65, 8, 2), (4, 2, 129, 120, 64), (4, 2, 300, 120, 128),
 ])
 def test_banded_attention_kv_groups_match_plain_version(
         cuda_device, causal, dtype, h, h_kv, s, d, window):
@@ -216,31 +211,6 @@ def test_banded_attention_kv_groups_match_plain_version(
     if window < s:
         short = ref.banded_attention_ref(q, k, v, window - 1, causal=causal)
         assert not _within(short, want32)
-
-
-@pytest.mark.parametrize("s,window,causal", [
-    (1, 1, True), (63, 1, False), (63, 63, False), (65, 2, True),
-    (129, 64, False), (300, 128, False)])
-@pytest.mark.parametrize("d", [8, 120])
-def test_banded_attention_tensor_core_edges(cuda_device, s, window, causal,
-                                            d):
-    """The wgmma design at the edges of its tiles: one row, a window of
-    one key, S just under, at and over one 64-row tile and one 128-row
-    block, and a bidirectional band wider than a block."""
-    from repro_torch.kernels import block_attention as kba
-    rng = np.random.default_rng(s * window + d)
-    q = torch.tensor(rng.standard_normal((4, s, d)), dtype=torch.bfloat16,
-                     device=cuda_device)
-    k, v = (torch.tensor(rng.standard_normal((2, s, d)),
-                         dtype=torch.bfloat16, device=cuda_device)
-            for _ in range(2))
-    before = ops.VARIANT_LAUNCHES["block_attention"]["wgmma"]
-    got = kba.banded_attention(q, k, v, window=window, causal=causal)
-    torch.cuda.synchronize()
-    assert ops.VARIANT_LAUNCHES["block_attention"]["wgmma"] == before + 1
-    want32 = ref.banded_attention_ref(q.float(), k.float(), v.float(),
-                                      window, causal=causal)
-    assert _within(got, want32)
 
 
 def test_banded_attention_unaligned_bf16_goes_to_the_fma_design(
