@@ -141,20 +141,11 @@ def bound_ms(n_bytes: float, flops: float,
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def max_err(torch, got, want) -> float:
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"shape/type {tuple(got.shape)} {got.dtype} "
-                             f"!= {tuple(want.shape)} {want.dtype}")
-    if got.numel() == 0:
-        return 0.0
-    return float((got.float() - want.float()).abs().max())
-
-
-def check_elementwise(torch, what, got, want32) -> float:
-    """Each element of a kernel's output against the plain version's
-    float32 result ``want32`` on the same inputs (for bfloat16, the plain
-    version run on the inputs cast to float32); returns the max abs error
-    and raises on a miss.
+def check_elementwise(torch, what, got, want32, dtype) -> float:
+    """Each element of a kernel's output, which must be of ``dtype`` (its
+    inputs' type), against the plain version's float32 result ``want32``
+    on the same inputs (for bfloat16, the plain version run on the inputs
+    cast to float32); returns the max abs error and raises on a miss.
 
     float32: atol 1e-4 (both sum in float32, in other orders).
     bfloat16: |got - want32| <= 2**-8 |want32| + 1e-3 rms(want32).  The
@@ -162,9 +153,9 @@ def check_elementwise(torch, what, got, want32) -> float:
     a value by at most half a bf16 ulp, 2**-8 of it; 1e-3 of the output's
     rms covers the float32 sums taken in another order.  A missing k-step
     or kv tile, or a wrong window edge, moves outputs by far more."""
-    if got.shape != want32.shape:
-        raise AssertionError(f"{what}: shape {tuple(got.shape)} != "
-                             f"{tuple(want32.shape)}")
+    if got.shape != want32.shape or got.dtype != dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want32.shape)} {dtype}")
     if got.numel() == 0:
         return 0.0
     diff = (got.float() - want32).abs()
@@ -188,7 +179,7 @@ def must_fail(torch, what, short, want32) -> str:
     """The check's power: ``short`` (a plain version with part of the work
     dropped) must miss :func:`check_elementwise`; returns the miss."""
     try:
-        check_elementwise(torch, what, short, want32)
+        check_elementwise(torch, what, short, want32, short.dtype)
     except AssertionError as e:
         return str(e)
     raise AssertionError(f"{what} passes the check: the tolerance is too "
@@ -239,7 +230,7 @@ def check_kernels(torch, ops, ref) -> dict:
                 want32 = ref.bsmm_pairs_ref(a.float(), b.float(), sa_c, sb_c,
                                             seg, cap_c)
                 what = f"bsmm_pairs bs={bs} {dtype} P={n_pairs}"
-                err = check_elementwise(torch, what, got, want32)
+                err = check_elementwise(torch, what, got, want32, dtype)
                 if n_pairs > inv:
                     must_fail(torch, what + " with the last k-step dropped",
                               ref.bsmm_pairs_ref(a[:, :, :-1], b[:, :-1],
@@ -262,7 +253,7 @@ def check_kernels(torch, ops, ref) -> dict:
                 torch.cuda.synchronize()
                 want32 = ref.batched_gemm_ref(a.float(), b.float())
                 what = f"batched_gemm bs={bs} {dtype} P={p}"
-                err = check_elementwise(torch, what, got, want32)
+                err = check_elementwise(torch, what, got, want32, dtype)
                 if p:
                     must_fail(torch, what + " with the last k-step dropped",
                               ref.batched_gemm_ref(a[:, :, :-1], b[:, :-1]),
@@ -442,7 +433,7 @@ def time_kernel(torch, ref, name, args, kw) -> dict:
         plain = lambda: ref.batched_gemm_ref(ga, gb)  # noqa: E731
         shape = {"products": int(p), "bs": bs, "dtype": str(ga.dtype)}
     err = check_elementwise(torch, f"{name} on the main path's wave "
-                            f"{shape}", kern(), plain())
+                            f"{shape}", kern(), plain(), ga.dtype)
     bms, by = bound_ms(n_bytes, flops)
     out = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain,
                                                            reps=5),
@@ -623,16 +614,13 @@ def check_attention_small(torch, ops, ref) -> float:
                                            block_q=block, block_kv=block,
                                            causal=causal)
                 torch.cuda.synchronize()
-                if got.dtype != dtype:
-                    raise AssertionError(f"banded_attention gave {got.dtype}"
-                                         f" for {dtype}")
                 if variant_counts()["block_attention"][design] != before + 1:
                     raise AssertionError(f"banded_attention {dtype} D={d} did "
                                          f"not launch the {design} design")
                 err = check_elementwise(
                     torch, f"banded_attention {(h, h_kv, s, d)} "
                     f"window={window} causal={causal} {dtype}", got,
-                    plain32(ref, q, k, v, window, causal))
+                    plain32(ref, q, k, v, window, causal), dtype)
                 worst = max(worst, err)
                 log(f"  banded_attention H={h} H_kv={h_kv} S={s:4d} D={d:3d} "
                     f"window={window:3d} causal={causal!s:5s} "
@@ -660,9 +648,6 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
     kern = lambda: kba.banded_attention(q, k, v, window=window,  # noqa: E731
                                         causal=causal)
     out = kern()
-    if out.dtype != q.dtype:
-        raise AssertionError(f"banded_attention gave {out.dtype} for "
-                             f"{q.dtype}")
     g = h // k.shape[0]                 # query heads a kv head
     err = 0.0
     for i in range(h):
@@ -671,7 +656,7 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
                          causal)
         err = max(err, check_elementwise(
             torch, f"banded_attention on layer 0, head {i}", out[i:i + 1],
-            want32))
+            want32, q.dtype))
         if i == 0:
             # the check's power: the plain version with the band one kv
             # tile short, rounded like the kernel, must miss it
