@@ -844,11 +844,11 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 # phase 4: report
 # ---------------------------------------------------------------------------
 
-#: the design of each kernel that the report's row measures: the PR that
-#: last redesigned it, and for banded_attention the design its bf16 calls
-#: take
-DESIGN = {"bsmm_pairs": "pr11", "batched_gemm": "pr13",
-          "banded_attention": "pr13-wgmma"}
+#: the design of each kernel that the report's row measures (for
+#: banded_attention, the one its bf16 calls take; see each csrc/ header)
+DESIGN = {"bsmm_pairs": "fma-slot-runs",
+          "batched_gemm": "persistent-cp.async-ring-fma",
+          "banded_attention": "wgmma-tma-split-p"}
 
 #: the phase whose run gives each kernel's headline row
 HEADLINE = {"bsmm_pairs": "banded", "batched_gemm": "banded_gemm",

@@ -675,7 +675,7 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// the driver's cuTensorMapEncodeTiled, found through the runtime so that the
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime so that the
 // library needs no -lcuda
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
