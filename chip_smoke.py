@@ -18,7 +18,11 @@ through the entry points a user calls, on the card:
              result: float32 atol 1e-4; bfloat16 2**-8 |want| + 1e-3
              rms(want) (the plain version run on the inputs cast to
              float32); the plain version with the last k-step of every
-             product dropped must miss that check.
+             product dropped must miss that check, and in the >= 1e5-pair
+             case (bs 32, float32) so must the plain version on inputs
+             rounded to TF32 (a tensor-core kernel without 3xTF32's
+             correction terms).  Each bsmm_pairs call must reach the design
+             its blocks select (bs >= 16: mma, else fma).
 3. main    — ``repro_torch.Session(engine="torch")`` at the paper's scale:
              banded ``A @ B`` (n = 65536), S2 overlap ``S.sym_square()``
              (32768 particles), random ``A.T @ B``, and banded again under
@@ -26,7 +30,12 @@ through the entry points a user calls, on the card:
              just before each run and read just after; the stored C block
              keys must equal the boolean product of the block masks, and
              256 sampled C blocks must match float64 sums built from the
-             same input data (rtol 1e-5 in the Frobenius norm).
+             same input data (rtol 1e-5 in the Frobenius norm).  Every
+             bsmm_pairs launch (bs 32, float32) must be on the tensor-core
+             design; on the banded wave one-pass TF32 must miss the check.
+3b. bs 8   — bsmm_pairs on the banded product's wave at bs 8 (the default
+             ``Session(bs=8)``; 8.9e6 pairs, built with numpy), held against
+             its plain version and timed beside ``torch.bmm``.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -52,7 +61,9 @@ lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              with the band one 64-key tile short must fail that check.
 4. report  — per phase the engine's wave stats and launch counts; per
              kernel its time on the card at the main path's largest wave
-             (CUDA events), its bound, its achieved bytes/s and FLOP/s and
+             (CUDA events), its bound (both terms: bytes over the HBM rate,
+             operations over the tensor-core rate of their type, float32 at
+             the 3xTF32 rate), its achieved bytes/s and FLOP/s and
              share of the bound, the plain version's time and the library
              yardstick's (``torch.bmm``, ``scaled_dot_product_
              attention``); the card's name and power limit.  Each kernel
@@ -77,10 +88,15 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FMA outside
-#: the tensor cores and dense bf16 tensor cores in FLOP/s
+#: the tensor cores, and dense TF32 and bf16 tensor cores, in FLOP/s
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 BF16_FLOPS = 989e12
+#: float32 products on the tensor cores that keep float32's error take three
+#: TF32 products each (3xTF32: a_hi b_hi + a_hi b_lo + a_lo b_hi), so the
+#: least time of float32 multiply work is set by this rate, not FP32_FLOPS
+FP32_3XTF32_FLOPS = TF32_FLOPS / 3
 
 #: the TPU kernel each CUDA kernel replaces (pl.pallas_call sites)
 REPLACES = {"bsmm_pairs": "src/repro/kernels/bsmm_pairs.py:78",
@@ -131,10 +147,25 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, flops: float,
-             peak: float = FP32_FLOPS) -> tuple[float, str]:
-    tb, tf = n_bytes / HBM_BPS, flops / peak
-    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
+def bound_ms(n_bytes: float, flops: float, peak: float) -> dict:
+    """The least time of the work, in ms: the larger of its bytes over the
+    HBM rate and its operations over ``peak``; both terms are kept."""
+    tb, tf = n_bytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(tb, tf),
+            "bound_by": "bytes" if tb >= tf else "operations",
+            "bound_bytes_ms": tb, "bound_ops_ms": tf}
+
+
+def multiply_peak(torch, dtype) -> float:
+    """The operations rate that bounds float32 or bf16 multiply work."""
+    return BF16_FLOPS if dtype == torch.bfloat16 else FP32_3XTF32_FLOPS
+
+
+def tf32_round(torch, x):
+    """x as float32 rounded to TF32 the way ``cvt.rna.tf32.f32`` rounds (to
+    nearest, ties away from zero): the inputs of a one-pass TF32 product."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -210,8 +241,34 @@ def pairs_case(torch, rng, cap_a, cap_b, cap_c, n_pairs, bs, dtype,
     return a, b, t(sa), t(sb), t(seg)
 
 
+def banded_wave(g: int, hb: int):
+    """The block pairs of ``C = A @ B`` for two block-banded matrices of g x g
+    blocks with block half-bandwidth hb, as the engine hands them to
+    ``bsmm_pairs``: A and B blocks packed row by row over the band (block
+    (i, k) at ``i * (2 hb + 1) + k - i + hb``), C slots row by row over the
+    band of C (half-bandwidth 2 hb), each slot's pairs in k order, so seg is
+    ascending.  Returns (sa, sb, seg, n_blocks, cap_c) as int32 numpy arrays
+    and ints; A and B have n_blocks blocks each (some at the edges unused)."""
+    w = 2 * hb + 1
+    i = np.repeat(np.arange(g), 4 * hb + 1)
+    j = i + np.tile(np.arange(-2 * hb, 2 * hb + 1), g)
+    keep = (j >= 0) & (j < g)
+    i, j = i[keep], j[keep]
+    lo = np.maximum(np.maximum(i, j) - hb, 0)
+    hi = np.minimum(np.minimum(i, j) + hb, g - 1)
+    cnt = hi - lo + 1
+    seg = np.repeat(np.arange(len(i)), cnt)
+    start = np.cumsum(cnt) - cnt
+    k = lo[seg] + np.arange(len(seg)) - start[seg]
+    sa = i[seg] * w + k - i[seg] + hb
+    sb = k * w + j[seg] - k + hb
+    return (sa.astype(np.int32), sb.astype(np.int32), seg.astype(np.int32),
+            g * w, len(i))
+
+
 def check_kernels(torch, ops, ref) -> dict:
     """Every kernel against its plain version; returns worst error each."""
+    from repro_torch.kernels import bsmm_pairs as kbp
     rng = np.random.default_rng(0)
     worst = {"bsmm_pairs": 0.0, "batched_gemm": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
@@ -224,8 +281,13 @@ def check_kernels(torch, ops, ref) -> dict:
                 a, b, sa, sb, seg = pairs_case(
                     torch, rng, cap_a, cap_b, cap_c, n_pairs, bs, dtype,
                     unvisited=unv, invalid=inv)
+                design = kbp.design_for(a)
+                before = variant_counts()["bsmm_pairs"][design]
                 got = ops.bsmm_pairs(a, b, sa, sb, seg, cap_c=cap_c)
                 torch.cuda.synchronize()
+                if variant_counts()["bsmm_pairs"][design] != before + 1:
+                    raise AssertionError(f"bsmm_pairs bs={bs} did not launch "
+                                         f"the {design} design")
                 sa_c, sb_c = sa.clamp(0, cap_a - 1), sb.clamp(0, cap_b - 1)
                 want32 = ref.bsmm_pairs_ref(a.float(), b.float(), sa_c, sb_c,
                                             seg, cap_c)
@@ -236,6 +298,13 @@ def check_kernels(torch, ops, ref) -> dict:
                               ref.bsmm_pairs_ref(a[:, :, :-1], b[:, :-1],
                                                  sa_c, sb_c, seg, cap_c),
                               want32)
+                if n_pairs >= 100000:
+                    log("    one-pass TF32 fails the check, as it must: "
+                        + must_fail(torch, what + " in one-pass TF32",
+                                    ref.bsmm_pairs_ref(
+                                        tf32_round(torch, a),
+                                        tf32_round(torch, b), sa_c, sb_c,
+                                        seg, cap_c), want32))
                 if unv and bool((got[cap_c - unv:] != 0).any()):
                     raise AssertionError(
                         f"bsmm_pairs bs={bs} {dtype}: unvisited slots not 0")
@@ -243,7 +312,8 @@ def check_kernels(torch, ops, ref) -> dict:
                                           err if dtype == torch.float32
                                           else 0.0)
                 log(f"  bsmm_pairs   bs={bs:2d} {str(dtype):14s} "
-                    f"P={n_pairs:6d} cap_c={cap_c:5d} max_abs_err={err:.3g}")
+                    f"P={n_pairs:6d} cap_c={cap_c:5d} {design} "
+                    f"max_abs_err={err:.3g}")
             for p in (1003, 0, 1, 4):
                 a = torch.tensor(rng.standard_normal((p, bs, bs)),
                                  dtype=dtype, device="cuda")
@@ -395,13 +465,15 @@ class Capture:
             setattr(self.ops, name, fn)
 
 
-def time_kernel(torch, ref, name, args, kw) -> dict:
+def time_kernel(torch, ref, name, args, kw, tf32_must_fail=False) -> dict:
     """Kernel, plain version and ``torch.bmm`` yardstick on one wave's
     inputs (CUDA events), the kernel's error against its plain version
     (raises past the tolerance of :func:`check_elementwise`), and its
-    bound: the larger of the bytes it must move (each input read
-    once, each output written once) over the HBM rate and the FLOPs these
-    inputs need over the float32 peak."""
+    bound: the larger of the bytes it must move (each input read once, each
+    output written once) over the HBM rate and the FLOPs these inputs need
+    over the rate of :func:`multiply_peak` (float32 at the 3xTF32 rate).
+    With ``tf32_must_fail`` the plain version on TF32-rounded inputs (a
+    kernel without 3xTF32's correction terms) must miss the check."""
     from repro_torch.kernels import batched_gemm as kbg
     from repro_torch.kernels import bsmm_pairs as kbp
 
@@ -432,14 +504,21 @@ def time_kernel(torch, ref, name, args, kw) -> dict:
         kern = lambda: kbg.batched_gemm(ga, gb)  # noqa: E731
         plain = lambda: ref.batched_gemm_ref(ga, gb)  # noqa: E731
         shape = {"products": int(p), "bs": bs, "dtype": str(ga.dtype)}
+    want32 = plain()
     err = check_elementwise(torch, f"{name} on the main path's wave "
-                            f"{shape}", kern(), plain(), ga.dtype)
-    bms, by = bound_ms(n_bytes, flops)
+                            f"{shape}", kern(), want32, ga.dtype)
+    if tf32_must_fail:
+        log("    one-pass TF32 fails the check, as it must: " + must_fail(
+            torch, f"{name} on the main path's wave in one-pass TF32",
+            ref.bsmm_pairs_ref(tf32_round(torch, a), tf32_round(torch, b),
+                               sa, sb, seg, cap_c), want32))
+    del want32
     out = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain,
                                                            reps=5),
            "library_ms": cuda_ms(torch, lambda: torch.bmm(ga, gb)),
-           "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-           "bytes": n_bytes, "flops": flops, "shape": shape}
+           "max_abs_err": err, "bytes": n_bytes, "flops": flops,
+           "shape": shape,
+           **bound_ms(n_bytes, flops, multiply_peak(torch, ga.dtype))}
     out.update(rates(out))
     del ga, gb
     return out
@@ -454,10 +533,11 @@ def rates(tm) -> dict:
 
 
 def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
-             oracle):
+             oracle, tf32_must_fail=False):
     """One main-path run: build inputs, zero the counters, multiply, read
-    the counters, read back and check, then time each kernel on the wave
-    this run gave it."""
+    the counters (every bsmm_pairs launch, bs 32 float32, must have gone to
+    the tensor-core design), read back and check, then time each kernel on
+    the wave this run gave it."""
     from repro_torch import Session
     from repro_torch.core.engine import TorchEngine
     import scipy.sparse as sp
@@ -474,6 +554,10 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
         stats = sess.engine_stats()     # flushes every wave; ends in a sync
     t_mult = time.perf_counter() - t1
     counts = dict(launches)
+    designs = variant_counts()["bsmm_pairs"]
+    if designs["mma"] != counts["bsmm_pairs"]:
+        raise AssertionError(f"{name}: bsmm_pairs launches {designs} not all "
+                             f"on the tensor-core (mma) design")
     blocks = stored_blocks(c)
     res = check_result(sp, name, blocks, *oracle(), n=c.n, bs=BS,
                        upper=c.upper, seed=7)
@@ -485,16 +569,20 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
                                    for w in stats["wave_log"])
     summary.update(tasks=len(sess.graph.nodes),
                    multiply_tasks=sess.n_multiply_tasks,
-                   flops=sess.flops, launches=counts, build_s=t_build,
+                   flops=sess.flops, launches=counts,
+                   bsmm_pairs_designs=designs, build_s=t_build,
                    multiply_s=t_mult, total_s=t_total, **res)
     log(f"  {name}: " + json.dumps(summary))
     summary["timing"] = {}
     for kname, (_, args, kw) in sorted(cap.calls.items()):
-        tm = summary["timing"][kname] = time_kernel(torch, ref, kname, args,
-                                                    kw)
+        tm = summary["timing"][kname] = time_kernel(
+            torch, ref, kname, args, kw,
+            tf32_must_fail=tf32_must_fail and kname == "bsmm_pairs")
         log(f"    {kname}: ms={tm['ms']:.4f} plain_ms={tm['plain_ms']:.4f} "
             f"library_ms={tm['library_ms']:.4f} "
-            f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}) "
+            f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}; bytes "
+            f"{tm['bound_bytes_ms']:.4f}, operations "
+            f"{tm['bound_ops_ms']:.4f}) "
             f"{tm['achieved_tb_per_s']:.3f} TB/s "
             f"{tm['achieved_tflop_per_s']:.2f} TFLOP/s "
             f"share_of_bound={tm['share_of_bound']:.3f} "
@@ -528,7 +616,8 @@ def main_path(torch, ops, ref, launches) -> dict:
 
     out["banded"] = run_case(torch, ops, ref, launches, "banded A@B",
                              build_banded, lambda a, b: a @ b,
-                             {"kernel": "pairs"}, banded_oracle)
+                             {"kernel": "pairs"}, banded_oracle,
+                             tf32_must_fail=True)
 
     # S2: 3-D overlap matrix of 32768 particles, symmetric upper storage
     coords = particle_cloud(SIZES["s2"], 3)
@@ -566,6 +655,65 @@ def main_path(torch, ops, ref, launches) -> dict:
                                   build_banded, lambda a, b: a @ b,
                                   {"kernel": "gemm"}, banded_oracle)
     return out
+
+
+#: blocks a side and block half-bandwidth of the bs-8 wave: the banded
+#: phase's matrices (n = 65536, element half-bandwidth 128) cut into the
+#: 8 x 8 blocks of the default ``Session(bs=8)``
+BS8_WAVE = (8192, 16)
+
+
+def time_bs8_wave(torch, ref) -> dict:
+    """``bsmm_pairs`` at the default Session width, bs 8 float32, on the
+    wave of the banded product built with numpy (:func:`banded_wave`, no
+    Session; random blocks from a seeded generator on the card): held
+    against its plain version (:func:`check_elementwise`, and the last
+    k-step dropped must miss), then timed beside its bound, the plain
+    version and ``torch.bmm`` on the pre-gathered pairs."""
+    from repro_torch.kernels import bsmm_pairs as kbp
+    g, hb = BS8_WAVE
+    bs = 8
+    sa, sb, seg, n_blocks, cap_c = banded_wave(g, hb)
+    gen = torch.Generator("cuda").manual_seed(8)
+    a, b = (torch.randn((n_blocks, bs, bs), generator=gen, device="cuda")
+            * bs ** -0.25 for _ in range(2))
+    sa_d, sb_d, seg_d = (torch.from_numpy(x).cuda() for x in (sa, sb, seg))
+    kern = lambda: kbp.bsmm_pairs(a, b, sa_d, sb_d, seg_d,  # noqa: E731
+                                  cap_c=cap_c)
+    plain = lambda: ref.bsmm_pairs_ref(a, b, sa_d, sb_d, seg_d,  # noqa: E731
+                                       cap_c)
+    want32 = plain()
+    err = check_elementwise(torch, "bsmm_pairs on the bs-8 wave", kern(),
+                            want32, torch.float32)
+    must_fail(torch, "bsmm_pairs on the bs-8 wave, last k-step dropped",
+              ref.bsmm_pairs_ref(a[:, :, :-1], b[:, :-1], sa_d, sb_d, seg_d,
+                                 cap_c), want32)
+    del want32
+    # the blocks the pairs read, once each; C once; sa, sb, seg once
+    n_bytes = ((len(np.unique(sa)) + len(np.unique(sb)) + cap_c) * bs * bs * 4
+               + 12 * len(seg))
+    flops = 2.0 * bs ** 3 * len(seg)
+    ga, gb = a[sa_d.long()], b[sb_d.long()]
+    res = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain,
+                                                           reps=3),
+           "library_ms": cuda_ms(torch, lambda: torch.bmm(ga, gb)),
+           "max_abs_err": err, "bytes": n_bytes, "flops": flops,
+           "design": kbp.design_for(a),
+           "shape": {"pairs": len(seg), "c_blocks": cap_c,
+                     "a_blocks": n_blocks, "b_blocks": n_blocks, "bs": bs,
+                     "dtype": "torch.float32"},
+           **bound_ms(n_bytes, flops, FP32_3XTF32_FLOPS)}
+    res.update(rates(res))
+    del ga, gb
+    torch.cuda.empty_cache()
+    log(f"  bsmm_pairs bs-8 wave: ms={res['ms']:.4f} "
+        f"plain_ms={res['plain_ms']:.4f} library_ms={res['library_ms']:.4f} "
+        f"bound_ms={res['bound_ms']:.4f} ({res['bound_by']}; bytes "
+        f"{res['bound_bytes_ms']:.4f}, operations {res['bound_ops_ms']:.4f}) "
+        f"share_of_bound={res['share_of_bound']:.3f} design={res['design']} "
+        f"max_abs_err={err:.3g} {res['shape']}")
+    log(f"    card: {gpu_name_and_limit()}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -680,10 +828,9 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
     # q and k, v read once, o written once
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
-    bms, by = bound_ms(n_bytes, flops, peak)
     res = {"ms": cuda_ms(torch, kern, reps=5, warmup=1),
            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
-           "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+           **bound_ms(n_bytes, flops, peak), "max_abs_err": err,
            "bytes": n_bytes, "flops": flops, "band_pairs_per_head": pairs,
            "design": kba.design_for(q, k, v),
            "shape": {"heads": h, "kv_heads": int(k.shape[0]), "seq": s,
@@ -809,7 +956,9 @@ def lm_phase(torch, ops, ref, launches) -> dict:
             f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']} "
             f"(sdpa {tm['library_ms_at_seq']} ms at S={tm['library_seq']}) "
             f"bound_ms={tm['bound_ms']:.4f} "
-            f"({tm['bound_by']}) {tm['achieved_tflop_per_s']:.1f} TFLOP/s "
+            f"({tm['bound_by']}; bytes {tm['bound_bytes_ms']:.4f}, "
+            f"operations {tm['bound_ops_ms']:.4f}) "
+            f"{tm['achieved_tflop_per_s']:.1f} TFLOP/s "
             f"share_of_bound={tm['share_of_bound']:.3f} "
             f"design={tm['design']} max_abs_err={tm['max_abs_err']:.3g} "
             f"prefill_share={tm['prefill_share']:.3f} {tm['shape']}")
@@ -846,7 +995,7 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 
 #: the design of each kernel that the report's row measures (for
 #: banded_attention, the one its bf16 calls take; see each csrc/ header)
-DESIGN = {"bsmm_pairs": "fma-slot-runs",
+DESIGN = {"bsmm_pairs": "persistent-warp-streams-cp.async-3xtf32-mma",
           "batched_gemm": "persistent-cp.async-ring-fma",
           "banded_attention": "wgmma-tma-split-p"}
 
@@ -958,6 +1107,10 @@ def main() -> int:
     log(f"  main_s={time.perf_counter() - t0:.3f} "
         f"host_construction_s={build_share:.3f} launches={total}")
 
+    log("phase 3b: bsmm_pairs on a bs-8 banded wave")
+    bs8 = time_bs8_wave(torch, ref)
+    worst["bsmm_pairs"] = max(worst["bsmm_pairs"], bs8["max_abs_err"])
+
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -973,7 +1126,7 @@ def main() -> int:
     log(f"  smoke_s={elapsed:.3f} host_construction_share="
         f"{build_share / elapsed:.3f}")
     log("record: " + json.dumps({"card": card, "phases": phases,
-                                 "smoke_s": elapsed}))
+                                 "bs8_wave": bs8, "smoke_s": elapsed}))
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}
                                 for r in rows]}))

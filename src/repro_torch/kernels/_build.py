@@ -29,6 +29,7 @@ LAUNCHES: dict[str, int] = {"bsmm_pairs": 0, "batched_gemm": 0,
 
 #: kernel name -> design -> launches so far, for kernels with several designs
 VARIANT_LAUNCHES: dict[str, dict[str, int]] = {
+    "bsmm_pairs": {"fma": 0, "mma": 0},
     "block_attention": {"fma": 0, "wgmma": 0}}
 
 #: kernels of this package, each one ``csrc/<name>.cu``

@@ -2,11 +2,24 @@
 
 The Hopper port of ``src/repro/kernels/bsmm_pairs.py::bsmm_pairs``: for
 every pair p, ``C[seg[p]] += A[sa[p]] @ B[sb[p]]``, with ``seg`` ascending
-and ``seg == cap_c`` marking a dropped pair.  One thread block owns one
-output slot and walks its run of pairs in order, so each C block sums its
-products in the order the engine fixed, without atomics; a slot that no
-pair visits comes back zero.  The run offsets are found here, on the
-device, with :func:`torch.searchsorted`.
+and ``seg == cap_c`` marking a dropped pair.  A persistent grid of teams
+(one warp, four at bs 64): team t of T takes the slots t, t + T, ... and
+streams their pairs through its own ``cp.async`` ring; a team sums a
+slot's run in the order the engine fixed, without atomics, so a slot's
+value depends on its run alone.  A slot that no pair visits comes back
+zero.  The run offsets are found on the device by a small kernel of the
+same source.
+
+The source holds two designs, and :func:`design_for` picks one per call:
+
+* ``mma`` — bs 16, 32 and 64: tensor cores (``mma.sync``).  float32 as
+  3xTF32 (``a_hi b_hi + a_hi b_lo + a_lo b_hi``, each part truncated to
+  TF32), which keeps about float32's error; bfloat16 products exact in
+  float32.
+* ``fma`` — bs 4 and 8: float32 FMA, one or two outputs a lane.
+
+Each launch adds one to ``LAUNCHES["bsmm_pairs"]`` and one to
+``VARIANT_LAUNCHES["bsmm_pairs"][design]``.
 
 This module launches the kernel and nothing else: the dispatch between the
 kernel (CUDA tensors) and the plain version (CPU tensors) lives in
@@ -23,15 +36,25 @@ from . import _build
 #: block sizes the kernel is instantiated for
 BLOCK_SIZES = (4, 8, 16, 32, 64)
 
+#: designs of the source, by the number the C entry points take
+DESIGNS = ("fma", "mma")
+
 _FN = {torch.float32: "bsmm_pairs_f32", torch.bfloat16: "bsmm_pairs_bf16"}
 
 
 def _entry(dtype: torch.dtype):
     fn = getattr(_build.load("bsmm_pairs"), _FN[dtype])
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def design_for(a_blocks: torch.Tensor) -> str:
+    """The design a call with these blocks goes to: ``"mma"`` (tensor
+    cores) for bs >= 16, whose blocks fill whole m16n8 tiles, else
+    ``"fma"``."""
+    return "mma" if a_blocks.shape[1] >= 16 else "fma"
 
 
 def bsmm_pairs(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
@@ -41,7 +64,7 @@ def bsmm_pairs(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
 
     a_blocks : (capA, bs, bs) float32 or bfloat16, CUDA, contiguous
     b_blocks : (capB, bs, bs) same type and device
-    sa, sb   : (P,) int32 slot ids, within range (the caller clamps)
+    sa, sb   : (P,) int32 slot ids; the kernel clamps them into range
     seg      : (P,) int32 output slot per pair, ascending; cap_c drops
     """
     dev = a_blocks.device
@@ -77,15 +100,20 @@ def bsmm_pairs(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
     out = torch.empty((cap_c, bs, bs), dtype=a_blocks.dtype, device=dev)
     if cap_c == 0:
         return out
-    # run of slot s is [offsets[s], offsets[s + 1]); pairs with
-    # seg == cap_c lie past offsets[cap_c] and are never read
-    offsets = torch.searchsorted(
-        seg, torch.arange(cap_c + 1, dtype=torch.int32, device=dev),
-        out_int32=True)
+    # the kernel moves 16-byte chunks: a view that starts off that grid is
+    # copied to a fresh (aligned) allocation first
+    a_blocks, b_blocks = (t if t.data_ptr() % 16 == 0 else t.clone()
+                          for t in (a_blocks, b_blocks))
+    # run of slot s is [offsets[s], offsets[s + 1]), filled by the kernel;
+    # pairs with seg == cap_c lie past offsets[cap_c] and are never read
+    offsets = torch.empty(cap_c + 1, dtype=torch.int32, device=dev)
+    design = design_for(a_blocks)
     err = _entry(a_blocks.dtype)(
         a_blocks.data_ptr(), b_blocks.data_ptr(), sa.data_ptr(),
-        sb.data_ptr(), offsets.data_ptr(), out.data_ptr(), cap_c, bs,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "bsmm_pairs")
+        sb.data_ptr(), seg.data_ptr(), offsets.data_ptr(), out.data_ptr(),
+        a_blocks.shape[0], b_blocks.shape[0], n_pairs, cap_c, bs,
+        DESIGNS.index(design), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, f"bsmm_pairs ({design})")
     _build.LAUNCHES["bsmm_pairs"] += 1
+    _build.VARIANT_LAUNCHES["bsmm_pairs"][design] += 1
     return out

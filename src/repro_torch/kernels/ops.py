@@ -42,14 +42,15 @@ def bsmm_pairs(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
                cap_c: int) -> torch.Tensor:
     """C[seg[p]] += A[sa[p]] @ B[sb[p]]; seg ascending, cap_c = invalid.
 
-    Slot ids are clamped into range (invalid pairs may point anywhere),
-    and C slots that no pair visits come back zero.
+    Slot ids are clamped into range (invalid pairs may point anywhere;
+    the kernel clamps them as it reads them), and C slots that no pair
+    visits come back zero.
     """
-    sa = sa.clamp(0, max(a_blocks.shape[0] - 1, 0))
-    sb = sb.clamp(0, max(b_blocks.shape[0] - 1, 0))
     if _on_cuda(a_blocks):
         return _bsmm_pairs_kernel(a_blocks, b_blocks, sa, sb, seg,
                                   cap_c=cap_c)
+    sa = sa.clamp(0, max(a_blocks.shape[0] - 1, 0))
+    sb = sb.clamp(0, max(b_blocks.shape[0] - 1, 0))
     return ref.bsmm_pairs_ref(a_blocks, b_blocks, sa, sb, seg, cap_c)
 
 

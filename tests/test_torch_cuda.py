@@ -46,6 +46,13 @@ def _drop_last_k(a, b):
     return a[:, :, :-1], b[:, :-1, :]
 
 
+def _tf32(x):
+    """x as float32 rounded to TF32 the way ``cvt.rna.tf32.f32`` rounds (to
+    nearest, ties away from zero): the inputs of a one-pass TF32 product."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 @pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_match_plain_versions(cuda_device, bs, dtype):
@@ -77,11 +84,149 @@ def test_kernels_match_plain_versions(cuda_device, bs, dtype):
     assert bool((got[36:] == 0).all())
     short = ref.bsmm_pairs_ref(*_drop_last_k(a, b), sa_t, sb_t, seg_t, 40)
     assert not _within(short, want32)
+    if dtype == torch.float32 and bs >= 16:
+        # the tensor-core design without 3xTF32's correction terms
+        assert not _within(ref.bsmm_pairs_ref(_tf32(a), _tf32(b), sa_t, sb_t,
+                                              seg_t, 40), want32)
     want32 = ref.batched_gemm_ref(a32, b32[:20])
     assert prods.dtype == dtype
     assert _within(prods, want32)
     assert not _within(ref.batched_gemm_ref(*_drop_last_k(a, b[:20])),
                        want32)
+
+
+def _check_pairs(a, b, sa, sb, seg, cap_c):
+    """bsmm_pairs on the card against its plain version's float32 result
+    (:func:`_within`), on the design :func:`design_for` picks (counted per
+    design); the last k-step dropped, and in float32 on the tensor-core
+    design one-pass TF32, must miss the check.  Returns the kernel's C."""
+    from repro_torch.kernels import bsmm_pairs as kbp
+    design = "mma" if a.shape[1] >= 16 else "fma"
+    assert kbp.design_for(a) == design
+    before = dict(ops.VARIANT_LAUNCHES["bsmm_pairs"])
+    got = ops.bsmm_pairs(a, b, sa, sb, seg, cap_c=cap_c)
+    torch.cuda.synchronize()
+    after = ops.VARIANT_LAUNCHES["bsmm_pairs"]
+    assert after[design] == before[design] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    sa, sb = sa.clamp(0, a.shape[0] - 1), sb.clamp(0, b.shape[0] - 1)
+    want32 = ref.bsmm_pairs_ref(a.float(), b.float(), sa, sb, seg, cap_c)
+    assert got.dtype == a.dtype and got.shape == want32.shape
+    assert _within(got, want32)
+    if int((seg < cap_c).sum()):
+        assert not _within(ref.bsmm_pairs_ref(*_drop_last_k(a, b), sa, sb,
+                                              seg, cap_c), want32)
+        if a.dtype == torch.float32 and design == "mma":
+            assert not _within(ref.bsmm_pairs_ref(_tf32(a), _tf32(b), sa, sb,
+                                                  seg, cap_c), want32)
+    return got
+
+
+def _ids(x, device):
+    return torch.tensor(np.asarray(x, np.int32), device=device)
+
+
+@pytest.mark.parametrize("case", ["long_run", "singletons", "ragged_chunks"])
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsmm_pairs_run_shapes(cuda_device, case, bs, dtype):
+    """Runs the persistent grid and the ring must get right:
+
+    long_run       one slot with 64 pairs (longer than any ring), between an
+                   empty slot and a slot of one pair;
+    singletons     20000 slots of one pair each: every warp of the grid
+                   walks many chunks and its ring crosses slot and chunk
+                   boundaries on every pair;
+    ragged_chunks  cap_c = 1001 and runs of 0-6 pairs, so the last chunk is
+                   short whatever the chunk size the launch picks.
+    """
+    rng = np.random.default_rng(bs * 7 + (dtype == torch.float32))
+    if case == "long_run":
+        cap_a = cap_b = 70
+        seg = [1] * 64 + [2]
+        cap_c = 3
+    elif case == "singletons":
+        cap_a = cap_b = 300
+        cap_c = 20000
+        seg = np.arange(cap_c)
+    else:
+        cap_a, cap_b, cap_c = 50, 60, 1001
+        seg = np.repeat(np.arange(cap_c), rng.integers(0, 7, cap_c))
+    n = len(seg)
+    a, b = _stack(rng, cap_a, bs, dtype, cuda_device), _stack(
+        rng, cap_b, bs, dtype, cuda_device)
+    got = _check_pairs(a, b, _ids(rng.integers(0, cap_a, n), cuda_device),
+                       _ids(rng.integers(0, cap_b, n), cuda_device),
+                       _ids(seg, cuda_device), cap_c)
+    if case == "long_run":
+        assert bool((got[0] == 0).all())
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsmm_pairs_takes_views_off_the_16_byte_grid(cuda_device, bs, dtype):
+    """Block stacks that start off the 16-byte grid are copied, not
+    refused, and give the plain version's result."""
+    rng = np.random.default_rng(bs)
+    flat = torch.tensor(rng.standard_normal(1 + 9 * bs * bs) * bs ** -0.25,
+                        dtype=dtype, device=cuda_device)
+    a = flat[1:].view(9, bs, bs)
+    b = flat[1 + 2 * bs * bs:].view(7, bs, bs)
+    assert a.data_ptr() % 16 and b.data_ptr() % 16
+    _check_pairs(a, b, _ids(rng.integers(0, 9, 40), cuda_device),
+                 _ids(rng.integers(0, 7, 40), cuda_device),
+                 _ids(np.sort(rng.integers(0, 11, 40)), cuda_device), 11)
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsmm_pairs_slot_depends_only_on_its_run(cuda_device, bs, dtype):
+    """One run of 7 pairs, placed alone in a one-slot call, and the same
+    run at slot 1234 of 3000 among other runs (another grid, other chunk
+    boundaries, other neighbours), give bitwise-equal C blocks."""
+    rng = np.random.default_rng(100 + bs)
+    a, b = (_stack(rng, 40, bs, dtype, cuda_device) for _ in range(2))
+    ra, rb = rng.integers(0, 40, 7), rng.integers(0, 40, 7)
+    alone = ops.bsmm_pairs(a, b, _ids(ra, cuda_device), _ids(rb, cuda_device),
+                           _ids(np.zeros(7), cuda_device), cap_c=1)
+    cap_c, at = 3000, 1234
+    runs = rng.integers(1, 9, cap_c)
+    runs[at] = 7
+    seg = np.repeat(np.arange(cap_c), runs)
+    sa, sb = rng.integers(0, 40, len(seg)), rng.integers(0, 40, len(seg))
+    first = int(runs[:at].sum())
+    sa[first:first + 7], sb[first:first + 7] = ra, rb
+    among = _check_pairs(a, b, _ids(sa, cuda_device), _ids(sb, cuda_device),
+                         _ids(seg, cuda_device), cap_c)
+    assert torch.equal(among[at], alone[0])
+    assert not torch.equal(among[at - 1], alone[0])
+
+
+@pytest.mark.parametrize("bs", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bsmm_pairs_propagates_nan(cuda_device, bs, dtype):
+    """A NaN in an A or a B block, with the bits of a NaN made on the card
+    (all mantissa bits set) or of a quiet NaN, comes out NaN in exactly the
+    C entries where the plain version has one; the rest within the
+    element check."""
+    rng = np.random.default_rng(bs + 1)
+    a, b = (_stack(rng, 12, bs, dtype, cuda_device) for _ in range(2))
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    nans = (0x7FFFFFFF, 0x7FC00000) if dtype == torch.float32 else (
+        0x7FFF, 0x7FC0)
+    a.view(bits)[3, 1, bs - 1] = nans[0]
+    b.view(bits)[5, bs - 1, 0] = nans[1]
+    assert bool(a[3, 1, bs - 1].isnan()) and bool(b[5, bs - 1, 0].isnan())
+    sa = _ids(rng.integers(0, 12, 90), cuda_device)
+    sb = _ids(rng.integers(0, 12, 90), cuda_device)
+    seg = _ids(np.sort(rng.integers(0, 30, 90)), cuda_device)
+    got = ops.bsmm_pairs(a, b, sa, sb, seg, cap_c=30)
+    torch.cuda.synchronize()
+    want32 = ref.bsmm_pairs_ref(a.float(), b.float(), sa, sb, seg, 30)
+    assert bool(want32.isnan().any())
+    assert torch.equal(got.isnan(), want32.isnan())
+    fin = ~want32.isnan()
+    assert _within(got[fin], want32[fin])
 
 
 def _stack(rng, p, bs, dtype, device):

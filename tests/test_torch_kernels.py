@@ -126,6 +126,92 @@ class TestBsmmPairs:
         np.testing.assert_allclose(_f32(got), _f32(want), atol=5e-2 * bs)
 
 
+def _tf32(x: np.ndarray, rounding: str = "rna") -> np.ndarray:
+    """x as TF32: 10 of float32's 23 mantissa bits kept, rounded as
+    ``cvt.rna.tf32.f32`` rounds (to nearest, ties away from zero) or
+    truncated (what the tensor cores read of a float32 register, and the
+    split of ``csrc/bsmm_pairs.cu``)."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    if rounding == "rna":
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+class TestTf32Numerics:
+    """Why the float32 tensor-core design of ``csrc/bsmm_pairs.cu`` splits
+    each operand: a plain emulation, on the CPU, of its arithmetic on runs
+    of 5 pairs of unit-variance products (the smoke's scale), against
+    float64.  The contract is atol 1e-4 per element and rel 1e-5 in the
+    Frobenius norm.  One-pass TF32 (one rounding of each input) misses
+    both; 3xTF32 (``a_hi b_hi + a_hi b_lo + a_lo b_hi``, ``x_hi = tf32(x)``,
+    ``x_lo = tf32(x - x_hi)``), each pair summed on its own and then added
+    to the slot in float32, as the kernel does, meets both, whether the
+    parts are rounded or, as in the kernel, truncated."""
+
+    @staticmethod
+    def _emulate(bs: int, scheme: str, rounding: str = "rna"):
+        rng = np.random.default_rng(bs)
+        slots, run = 200, 5
+        a = (rng.standard_normal((slots * run, bs, bs))
+             * bs ** -0.25).astype(np.float32)
+        b = (rng.standard_normal((slots * run, bs, bs))
+             * bs ** -0.25).astype(np.float32)
+        want = np.matmul(a.astype(np.float64), b.astype(np.float64)).reshape(
+            slots, run, bs, bs).sum(1)
+        ah, bh = _tf32(a, rounding), _tf32(b, rounding)
+        if scheme == "one_pass":
+            prods = np.matmul(ah, bh)
+        else:
+            al, bl = _tf32(a - ah, rounding), _tf32(b - bh, rounding)
+            prods = np.matmul(ah, bl) + np.matmul(al, bh) + np.matmul(ah, bh)
+        got = np.zeros((slots, bs, bs), np.float32)
+        for r in range(run):                    # pair by pair, in order
+            got += prods.reshape(slots, run, bs, bs)[:, r]
+        err = float(np.abs(got - want).max())
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        return err, rel
+
+    @pytest.mark.parametrize("bs", [16, 32, 64])
+    def test_one_pass_tf32_misses_the_float32_contract(self, bs):
+        err, rel = self._emulate(bs, "one_pass")
+        assert err > 1e-4 and rel > 1e-5
+
+    @pytest.mark.parametrize("rounding", ["rna", "truncate"])
+    @pytest.mark.parametrize("bs", [16, 32, 64])
+    def test_3xtf32_meets_the_float32_contract(self, bs, rounding):
+        err, rel = self._emulate(bs, "three_pass", rounding)
+        assert err <= 1e-4 and rel <= 1e-5
+
+    def test_tf32_rounding_is_to_nearest_ties_away(self):
+        one = np.float32(1.0)
+        ulp = np.float32(2.0 ** -10)             # TF32's spacing at 1
+        x = np.array([1 + 2.0 ** -11, 1 + 2.0 ** -12, -(1 + 2.0 ** -11),
+                      1 + 3 * 2.0 ** -11], np.float32)
+        np.testing.assert_array_equal(
+            _tf32(x), np.array([one + ulp, one, -(one + ulp),
+                                one + 2 * ulp], np.float32))
+        np.testing.assert_array_equal(
+            _tf32(x, "truncate"), np.array([one, one, -one, one + ulp],
+                                           np.float32))
+
+
+class TestBsmmPairsDesigns:
+    @pytest.mark.parametrize("bs,design", [(4, "fma"), (8, "fma"),
+                                           (16, "mma"), (32, "mma"),
+                                           (64, "mma")])
+    def test_design_for_block_size(self, bs, design):
+        """Tensor cores where a block fills whole m16n8 tiles."""
+        for dtype in (torch.float32, torch.bfloat16):
+            assert kbp.design_for(torch.zeros((1, bs, bs),
+                                              dtype=dtype)) == design
+
+    def test_launches_are_counted_per_design(self):
+        assert set(ops.VARIANT_LAUNCHES["bsmm_pairs"]) == set(kbp.DESIGNS)
+        _build.VARIANT_LAUNCHES["bsmm_pairs"]["mma"] += 3
+        _build.reset_launches()
+        assert all(v == 0 for v in ops.VARIANT_LAUNCHES["bsmm_pairs"].values())
+
+
 class TestDispatch:
     def test_plain_versions_on_cpu_match_ref(self):
         ab, bb, sa, sb, seg = _pairs_case(5, 6, 3, 9, 8)
