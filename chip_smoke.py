@@ -36,6 +36,32 @@ through the entry points a user calls, on the card:
 3b. bs 8   — bsmm_pairs on the banded product's wave at bs 8 (the default
              ``Session(bs=8)``; 8.9e6 pairs, built with numpy), held against
              its plain version and timed beside ``torch.bmm``.
+sim     — the paper's communication result (Table 1) on phase 3's banded
+             and S2 graphs: the runtime simulator (``repro_torch.runtime``)
+             runs the build phase, zeroes its counters and runs the
+             multiply on p = 16 and 64 simulated workers under
+             parent-worker and random chunk placement; per run the
+             average and maximum MB received per worker, steals, makespan,
+             parallel efficiency and the simulator's host seconds.
+             Parent-worker placement must receive less than random, on
+             average and at the maximum, at each p, and
+             ``analysis.comm_summary`` must agree with each report.  Then
+             ``Session.simulate(fresh_stats=True)`` on each session.
+solvers — the electronic-structure path through ``Session(engine=
+             "torch")`` (leaf_n 2048, bs 32, every multiply a bsmm_pairs
+             wave on the mma design): ``inverse_factor(method=
+             "localized", tau=1e-7)`` of a banded SPD overlap S at n =
+             16384, ``ZᵀSZ - I`` in float64 on the card within 2 tol and
+             within 1e-4 sqrt(n/64) of the reported residual (tol = 1e-4
+             sqrt(n/64)); ``multiply_chain([Z.T, F, Z], TauPolicy(target=
+             1e-5))``, its error against float64 on the card within the
+             accumulated bound plus a float32 slack of 1e-3 sqrt(n/64),
+             the bound within the target; ``scf_density`` at n = 1024
+             (leaf_n 256, SP2 tol 1e-6 sqrt(n/64)): converged, occupation
+             within 1e-3, zero replay tasks, D within 5e-3 of a float64
+             ``eigh`` reference on the card.  Per step the wall seconds,
+             launches per design, the kernel's summed CUDA-event ms and
+             share, and the host seconds of the dense round trips.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -533,11 +559,13 @@ def rates(tm) -> dict:
 
 
 def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
-             oracle, tf32_must_fail=False):
+             oracle, tf32_must_fail=False, keep=None):
     """One main-path run: build inputs, zero the counters, multiply, read
     the counters (every bsmm_pairs launch, bs 32 float32, must have gone to
     the tensor-core design), read back and check, then time each kernel on
-    the wave this run gave it."""
+    the wave this run gave it.  With ``keep`` (a dict) the session, the
+    result and the number of tasks that built the inputs stay in
+    ``keep[name]`` for phase sim."""
     from repro_torch import Session
     from repro_torch.core.engine import TorchEngine
     import scipy.sparse as sp
@@ -547,6 +575,7 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
                    leaf_n=LEAF_N, bs=BS)
     mats = build(sess)
     t_build = time.perf_counter() - t0
+    n_build = len(sess.graph.nodes)
     reset_counts()
     t1 = time.perf_counter()
     with Capture(ops) as cap:
@@ -588,10 +617,12 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
             f"share_of_bound={tm['share_of_bound']:.3f} "
             f"max_abs_err={tm['max_abs_err']:.3g} {tm['shape']}")
     log(f"    card: {gpu_name_and_limit()}")
+    if keep is not None:
+        keep[name] = (sess, c, n_build)
     return summary
 
 
-def main_path(torch, ops, ref, launches) -> dict:
+def main_path(torch, ops, ref, launches, keep) -> dict:
     import scipy.sparse as sp
     from repro_torch.core.patterns import (banded_pairs, divide_space_order,
                                            overlap_pairs, particle_cloud,
@@ -617,7 +648,7 @@ def main_path(torch, ops, ref, launches) -> dict:
     out["banded"] = run_case(torch, ops, ref, launches, "banded A@B",
                              build_banded, lambda a, b: a @ b,
                              {"kernel": "pairs"}, banded_oracle,
-                             tf32_must_fail=True)
+                             tf32_must_fail=True, keep=keep)
 
     # S2: 3-D overlap matrix of 32768 particles, symmetric upper storage
     coords = particle_cloud(SIZES["s2"], 3)
@@ -636,7 +667,7 @@ def main_path(torch, ops, ref, launches) -> dict:
 
     out["s2"] = run_case(torch, ops, ref, launches, "S2 sym_square", build_s2,
                          lambda s: s.sym_square(), {"kernel": "pairs"},
-                         s2_oracle)
+                         s2_oracle, keep=keep)
 
     # random: ~10% of 32x32 blocks occupied, no locality
     n_rnd = SIZES["random"]
@@ -714,6 +745,361 @@ def time_bs8_wave(torch, ref) -> dict:
         f"max_abs_err={err:.3g} {res['shape']}")
     log(f"    card: {gpu_name_and_limit()}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase sim: the paper's communication result on phase 3's graphs
+# ---------------------------------------------------------------------------
+
+#: simulated worker counts and chunk placements of phase sim
+SIM_PS = (16, 64)
+SIM_PLACEMENTS = ("parent-worker", "random")
+
+
+def sim_run(sess, n_build, p, placement) -> tuple:
+    """The session's task graph on ``p`` simulated workers: a scheduler
+    built as ``Session.scheduler`` builds it runs the input-building tasks
+    (the build phase places the input chunks, paper §7), zeroes its
+    counters (``fresh_stats``) and runs the multiply.  Returns the
+    multiply phase's report and the host seconds of both runs."""
+    from repro_torch.runtime.scheduler import Scheduler
+    t0 = time.perf_counter()
+    sched = Scheduler(cost=sess.cost, cache_bytes=sess.cache_bytes,
+                      seed=sess.seed, dedup=sess.dedup)
+    sched.run(sess.graph, n_workers=p, placement=placement,
+              only=set(range(n_build)))
+    sched.reset_stats()
+    rep = sched.run(sess.graph)
+    return rep, time.perf_counter() - t0
+
+
+def sim_record(an, rep, host_s) -> dict:
+    """One run's numbers; ``comm_summary`` must agree with the report."""
+    s = an.comm_summary(rep.bytes_received)
+    if not (s["n_workers"] == rep.n_workers
+            and s["max_bytes"] == rep.max_bytes_received
+            and abs(s["avg_bytes"] - rep.avg_bytes_received)
+            <= 1e-9 * max(rep.avg_bytes_received, 1.0)
+            and s["imbalance"] >= 1.0):
+        raise AssertionError(f"comm_summary {s} disagrees with the report")
+    return {"avg_MB": rep.avg_bytes_received / 1e6,
+            "max_MB": rep.max_bytes_received / 1e6,
+            "imbalance": s["imbalance"], "steals": rep.steals,
+            "tasks": rep.n_tasks, "makespan_s": rep.makespan,
+            "parallel_efficiency": rep.parallel_efficiency,
+            "host_s": host_s}
+
+
+def sim_phase(kept) -> dict:
+    """``Scheduler`` runs over phase 3's banded ``A @ B`` and S2
+    ``sym_square`` graphs for each placement and p of :data:`SIM_PS`; the
+    paper's locality claim (Table 1): parent-worker placement receives
+    fewer bytes per worker than random placement, on average and at the
+    maximum, at every p.  Then ``Session.simulate(fresh_stats=True)``
+    itself on each session: the whole graph as one phase."""
+    from repro_torch.core import analysis as an
+    out = {}
+    for name, (sess, c, n_build) in kept.items():
+        runs = {}
+        for p in SIM_PS:
+            for placement in SIM_PLACEMENTS:
+                rep, host_s = sim_run(sess, n_build, p, placement)
+                r = runs[f"{placement}/p{p}"] = sim_record(an, rep, host_s)
+                log(f"  {name} {placement} p={p}: avg_MB={r['avg_MB']:.6f} "
+                    f"max_MB={r['max_MB']:.6f} steals={r['steals']} "
+                    f"makespan_s={r['makespan_s']:.6g} parallel_efficiency="
+                    f"{r['parallel_efficiency']:.4f} host_s={host_s:.3f}")
+            aware = runs[f"parent-worker/p{p}"]
+            oblivious = runs[f"random/p{p}"]
+            ratio = {k: oblivious[k] / aware[k] for k in ("avg_MB", "max_MB")}
+            runs[f"random_over_parent/p{p}"] = ratio
+            log(f"  {name} p={p}: random / parent-worker bytes received "
+                f"per worker: avg {ratio['avg_MB']:.3f}x, max "
+                f"{ratio['max_MB']:.3f}x")
+            if not (aware["avg_MB"] < oblivious["avg_MB"]
+                    and aware["max_MB"] < oblivious["max_MB"]):
+                raise AssertionError(
+                    f"{name} p={p}: parent-worker placement received no less "
+                    f"than random ({aware} vs {oblivious})")
+        t0 = time.perf_counter()
+        rep = sess.simulate(p=SIM_PS[0], placement="parent-worker",
+                            fresh_stats=True)
+        r = runs["session.simulate"] = sim_record(
+            an, rep, time.perf_counter() - t0)
+        log(f"  {name} Session.simulate(p={SIM_PS[0]}, parent-worker, "
+            f"fresh_stats=True), build and multiply as one phase: "
+            f"avg_MB={r['avg_MB']:.6f} max_MB={r['max_MB']:.6f} "
+            f"steals={r['steals']} tasks={r['tasks']} "
+            f"host_s={r['host_s']:.3f}")
+        out[name] = runs
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase solvers: the electronic-structure path on the card
+# ---------------------------------------------------------------------------
+
+#: solver sizes: the factor and chain at n (leaf_n 2048, bs 32); the SCF
+#: density at SCF_N (leaf_n 256, bs 32); band half-width of S and F
+SOLVER_N, SCF_N, SCF_LEAF_N, BAND_W = 16384, 1024, 256, 64
+
+
+def overlap_table(n: int, w: int, seed: int) -> np.ndarray:
+    """Overlap S by diagonals, row k = |i - j| (entry i is S[i, i + k]):
+    standard normal draws times 0.5**k, scaled so every row's off-diagonal
+    mass is at most 0.45 against the unit diagonal (diagonally dominant,
+    hence SPD), as ``tests/test_solvers.py::_spd("banded")`` builds it."""
+    rng = np.random.default_rng(seed)
+    tab = np.zeros((w + 1, n))
+    for k in range(1, w + 1):
+        tab[k, :n - k] = rng.standard_normal(n - k) * 0.5 ** k
+    mass = np.abs(tab[1:]).sum(0)
+    for k in range(1, w + 1):
+        mass[k:] += np.abs(tab[k, :n - k])
+    tab[1:] *= 0.45 / mass.max()
+    tab[0] = 1.0
+    return tab
+
+
+def fock_table(n: int, w: int, seed: int) -> np.ndarray:
+    """Fock F by diagonals: -exp(-0.4 k) plus N(0, 0.05**2) noise, the
+    same draw on both sides of the diagonal."""
+    rng = np.random.default_rng(seed)
+    tab = np.zeros((w + 1, n))
+    for k in range(w + 1):
+        tab[k, :n - k] = (-np.exp(-0.4 * k)
+                          + 0.05 * rng.standard_normal(n - k))
+    return tab
+
+
+def table_values(tab):
+    """``value_fn`` of ``Session.from_pattern`` for a symmetric band."""
+    def value_fn(r, c):
+        r, c = np.asarray(r), np.asarray(c)
+        return tab[np.abs(r - c), np.minimum(r, c)]
+    return value_fn
+
+
+def table_dense(torch, tab, n, device):
+    """The symmetric banded matrix of a table, dense float64."""
+    a = torch.zeros((n, n), dtype=torch.float64, device=device)
+    t = torch.from_numpy(tab).to(device)
+    for k in range(tab.shape[0]):
+        i = torch.arange(n - k, device=device)
+        a[i, i + k] = t[k, :n - k]
+        a[i + k, i] = t[k, :n - k]
+    return a
+
+
+class StepClock:
+    """Counts what one solver step spends: every ``bsmm_pairs`` launch's
+    CUDA-event time (the wrapper of :mod:`repro_torch.kernels.ops`,
+    bracketed by events), and the host seconds of the dense round trips,
+    dense -> quadtree (``qt_from_dense``, ``qt_rebind_dense``) and quadtree
+    -> dense (``qt_to_dense`` after its flush)."""
+
+    def __init__(self, torch, ops):
+        import repro_torch.api.matrix as mmat
+        import repro_torch.api.plan as mplan
+        import repro_torch.api.session as msess
+        self.torch, self.ops = torch, ops
+        self.sites = [(ops, "bsmm_pairs"), (msess, "qt_from_dense"),
+                      (mplan, "qt_rebind_dense"), (mmat, "qt_to_dense")]
+        self.events: list = []
+        self.dense_s = {"from_dense": 0.0, "rebind_dense": 0.0,
+                        "to_dense": 0.0}
+        self.dense_calls = dict.fromkeys(self.dense_s, 0)
+
+    def __enter__(self):
+        torch = self.torch
+        self._orig = [getattr(m, a) for m, a in self.sites]
+        kern, from_dense, rebind, to_dense = self._orig
+
+        def timed_kernel(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = kern(*args, **kw)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def host(key, fn, flush=False):
+            def timed(g, *args, **kw):
+                if flush:
+                    g.flush()           # kernel waves are not the round trip
+                t0 = time.perf_counter()
+                out = fn(g, *args, **kw)
+                self.dense_s[key] += time.perf_counter() - t0
+                self.dense_calls[key] += 1
+                return out
+            return timed
+
+        wrapped = [timed_kernel, host("from_dense", from_dense),
+                   host("rebind_dense", rebind),
+                   host("to_dense", to_dense, flush=True)]
+        for (m, a), fn in zip(self.sites, wrapped):
+            setattr(m, a, fn)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.synchronize()
+        self.wall_s = time.perf_counter() - self.t0
+        for (m, a), fn in zip(self.sites, self._orig):
+            setattr(m, a, fn)
+
+    def summary(self, launches) -> dict:
+        kernel_ms = sum(s.elapsed_time(e) for s, e in self.events)
+        designs = variant_counts()["bsmm_pairs"]
+        out = {"wall_s": self.wall_s, "launches": dict(launches),
+               "bsmm_pairs_designs": designs, "kernel_ms": kernel_ms,
+               "kernel_share": kernel_ms / 1e3 / self.wall_s,
+               "dense_round_trip_s": dict(self.dense_s),
+               "dense_round_trip_calls": dict(self.dense_calls)}
+        if launches["bsmm_pairs"] <= 0:
+            raise AssertionError("solver step: bsmm_pairs was never launched")
+        if designs["mma"] != launches["bsmm_pairs"] or \
+                len(self.events) != launches["bsmm_pairs"]:
+            raise AssertionError(f"solver step: bsmm_pairs launches "
+                                 f"{designs} not all on the mma design")
+        return out
+
+
+def solver_step(torch, ops, launches, name, fn):
+    """Run one solver step with the counts zeroed just before it and read
+    just after, under a :class:`StepClock`."""
+    reset_counts()
+    with StepClock(torch, ops) as clock:
+        result = fn()
+    rec = clock.summary(launches)
+    log(f"  {name}: wall_s={rec['wall_s']:.3f} bsmm_pairs launches="
+        f"{rec['launches']['bsmm_pairs']} designs={rec['bsmm_pairs_designs']}"
+        f" kernel_ms={rec['kernel_ms']:.3f} kernel_share="
+        f"{rec['kernel_share']:.5f} dense round trips (host s): "
+        f"{json.dumps(rec['dense_round_trip_s'])} calls "
+        f"{json.dumps(rec['dense_round_trip_calls'])}")
+    return result, rec
+
+
+def solver_phase(torch, ops, launches, n=SOLVER_N, scf_n=SCF_N,
+                 dev="cuda") -> dict:
+    """Inverse factorization (localized) and the chain ``Zᵀ F Z`` at
+    ``n``, then the SCF density at ``scf_n``, all through
+    ``repro_torch.Session(engine="torch")`` and ``repro_torch.solvers``,
+    each checked against float64 products on the card."""
+    import math
+    from repro_torch import Session
+    from repro_torch.core.patterns import banded_pairs
+    from repro_torch.solvers import TauPolicy, inverse_factor, \
+        multiply_chain, scf_density
+    out = {}
+    # float32 packing puts a floor under every Frobenius check, and the
+    # floor grows like sqrt(n): the reference's float32 tolerances hold at
+    # n = 64, so each is scaled by sqrt(n / 64) here
+    grow = math.sqrt(n / 64)
+    factor_tol = 1e-4 * grow
+    chain_slack = 1e-3 * grow
+    s_tab, f_tab = overlap_table(n, BAND_W, 0), fock_table(n, BAND_W, 0)
+    rows, cols = banded_pairs(n, BAND_W)
+    t0 = time.perf_counter()
+    sess = Session(engine="torch", leaf_n=LEAF_N, bs=BS)
+    S = sess.from_pattern(rows, cols, n, value_fn=table_values(s_tab),
+                          upper=True)
+    F = sess.from_pattern(rows, cols, n, value_fn=table_values(f_tab))
+    out["build_s"] = time.perf_counter() - t0
+    log(f"  inputs n={n} band {BAND_W}: build_s={out['build_s']:.3f}")
+
+    (Z, rep), rec = solver_step(
+        torch, ops, launches, "inverse_factor(localized, tau=1e-7)",
+        lambda: inverse_factor(S, method="localized", tau=1e-7,
+                               tol=factor_tol))
+    zd = torch.from_numpy(Z.to_dense()).to(dev, torch.float64)
+    sd = table_dense(torch, s_tab, n, dev)
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    measured = float(torch.linalg.norm(zd.T @ sd @ zd - eye))
+    del sd
+    rec.update(n=n, iterations=rep.iterations, splits=rep.splits,
+               multiply_tasks=rep.multiply_tasks, flops=rep.flops,
+               residual=rep.residual, measured_residual=measured,
+               tol=factor_tol, converged=rep.converged)
+    log(f"    residual {rep.residual:.6g} (report) {measured:.6g} (float64 "
+        f"on the card), tol {factor_tol:.6g}; iterations {rep.iterations} "
+        f"splits {rep.splits} multiply_tasks {rep.multiply_tasks}")
+    if not (rep.converged and measured <= 2 * factor_tol
+            and abs(measured - rep.residual) <= 1e-4 * grow):
+        raise AssertionError(f"inverse factor: {rec}")
+    out["factor"] = rec
+
+    def chain():        # the product read back: its last wave runs there
+        P, crep = multiply_chain([Z.T, F, Z], policy=TauPolicy(target=1e-5))
+        return P.to_dense(), crep
+
+    (pd, crep), rec = solver_step(
+        torch, ops, launches, "multiply_chain([Z.T, F, Z], target=1e-5)",
+        chain)
+    fd = table_dense(torch, f_tab, n, dev)
+    exact = zd.T @ fd @ zd
+    del fd
+    err = float(torch.linalg.norm(
+        torch.from_numpy(pd).to(dev, torch.float64) - exact))
+    del exact, zd, eye, pd
+    rec.update(n=n, taus=crep.taus, accumulated_bound=crep.accumulated_bound,
+               measured_error=err, float32_slack=chain_slack,
+               flops=crep.flops, pruned_flops=crep.pruned_flops)
+    log(f"    error {err:.6g} (float64 on the card), accumulated bound "
+        f"{crep.accumulated_bound:.6g} + float32 slack {chain_slack:.6g}, "
+        f"target 1e-5; taus {crep.taus}; flops {crep.flops:.6g} pruned "
+        f"{crep.pruned_flops:.6g}")
+    if not (err <= crep.accumulated_bound + chain_slack
+            and crep.accumulated_bound <= 1e-5):
+        raise AssertionError(f"multiply chain: {rec}")
+    out["chain"] = rec
+    del sess, S, F, Z
+    torch.cuda.empty_cache()
+
+    n = scf_n
+    sp2_tol = 1e-6 * math.sqrt(n / 64)
+    s = table_dense(torch, overlap_table(n, BAND_W, 0), n, dev)
+    f = table_dense(torch, fock_table(n, BAND_W, 0), n, dev)
+    n_occ = n // 4
+    scf_sess = Session(lazy=True, engine="torch", leaf_n=SCF_LEAF_N, bs=BS)
+
+    def scf():          # D read back: the back transformation runs there
+        D, srep = scf_density(scf_sess, f.cpu().numpy(), s.cpu().numpy(),
+                              n_occ, tol=sp2_tol)
+        return D.to_dense(), srep
+
+    (dd, srep), rec = solver_step(
+        torch, ops, launches, f"scf_density(n={n}, n_occ={n_occ})", scf)
+    z = torch.linalg.solve_triangular(
+        torch.linalg.cholesky(s).T, torch.eye(n, dtype=torch.float64,
+                                              device=dev), upper=True)
+    _, v = torch.linalg.eigh(z.T @ f @ z)
+    c = v[:, :n_occ]
+    want = z @ (c @ c.T) @ z.T
+    got = torch.from_numpy(dd).to(dev, torch.float64)
+    d_err = float((got - want).abs().max())
+    close = bool(torch.allclose(got, want, atol=5e-3, rtol=5e-3))
+    rec.update(n=n, sp2_iterations=srep.sp2_iterations,
+               idempotency=srep.idempotency, tol=sp2_tol,
+               occupation=srep.occupation, converged=srep.converged,
+               replay_tasks=srep.replay_tasks,
+               recompile_hits=srep.recompile_hits,
+               recompile_misses=srep.recompile_misses,
+               factor_residual=srep.factor.residual, max_abs_err=d_err)
+    log(f"    SP2 iterations {srep.sp2_iterations} idempotency "
+        f"{srep.idempotency:.6g} (tol {sp2_tol:.6g}) occupation "
+        f"{srep.occupation:.9g} replay_tasks {srep.replay_tasks} "
+        f"recompiles {srep.recompile_hits} hits / {srep.recompile_misses} "
+        f"misses; D max |err| {d_err:.6g} against float64 eigh on the card")
+    if not (srep.converged and abs(srep.occupation - n_occ) <= 1e-3
+            and srep.replay_tasks == 0 and close):
+        raise AssertionError(f"scf density: {rec}")
+    out["scf"] = rec
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1096,7 +1482,8 @@ def main() -> int:
 
     log("phase 3: main path")
     t0 = time.perf_counter()
-    phases = main_path(torch, ops, ref, _build.LAUNCHES)
+    kept: dict = {}
+    phases = main_path(torch, ops, ref, _build.LAUNCHES, kept)
     total = {k: sum(ph["launches"][k] for ph in phases.values())
              for k in _build.KERNELS}
     for name, ph in phases.items():
@@ -1110,6 +1497,26 @@ def main() -> int:
     log("phase 3b: bsmm_pairs on a bs-8 banded wave")
     bs8 = time_bs8_wave(torch, ref)
     worst["bsmm_pairs"] = max(worst["bsmm_pairs"], bs8["max_abs_err"])
+
+    log("phase sim: simulated communication on phase 3's graphs")
+    t0 = time.perf_counter()
+    reset_counts()
+    sim = sim_phase(kept)
+    sim["launches"] = dict(_build.LAUNCHES)
+    del kept
+    sim["sim_s"] = time.perf_counter() - t0
+    log(f"  sim_s={sim['sim_s']:.3f} launches={sim['launches']} (the "
+        f"graphs were flushed in phase 3)")
+
+    log("phase solvers: inverse factorization, chain and SCF density")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    solvers = solver_phase(torch, ops, _build.LAUNCHES)
+    solvers["solvers_s"] = time.perf_counter() - t0
+    total["bsmm_pairs"] += sum(st["launches"]["bsmm_pairs"]
+                               for st in solvers.values()
+                               if isinstance(st, dict) and "launches" in st)
+    log(f"  solvers_s={solvers['solvers_s']:.3f} launches={total}")
 
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
@@ -1126,7 +1533,8 @@ def main() -> int:
     log(f"  smoke_s={elapsed:.3f} host_construction_share="
         f"{build_share / elapsed:.3f}")
     log("record: " + json.dumps({"card": card, "phases": phases,
-                                 "bs8_wave": bs8, "smoke_s": elapsed}))
+                                 "bs8_wave": bs8, "sim": sim,
+                                 "solvers": solvers, "smoke_s": elapsed}))
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}
                                 for r in rows]}))

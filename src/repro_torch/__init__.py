@@ -7,8 +7,11 @@ leaf engine ``engine="torch"``, whose batched leaf multiply runs as
 hand-written CUDA kernels on the GPU.  The LM substrate (``models``,
 ``configs``, ``launch.lm_serve``) runs the dense attention family, its
 sliding-window attention through the ``banded_attention`` kernel.  The
-subsystems remain importable directly (``repro_torch.core``,
-``repro_torch.kernels``, ...).
+runtime simulator (``repro_torch.runtime``) replays a session's task graph
+on a virtual cluster, and ``repro_torch.solvers`` holds the
+electronic-structure solvers (inverse factorization, truncated chains,
+SCF density).  The subsystems remain importable directly
+(``repro_torch.core``, ``repro_torch.kernels``, ...).
 
 The package imports ``torch`` and numpy, never ``jax`` and never the
 reference package ``repro``.  Imports are lazy (PEP 562) so ``import
@@ -16,9 +19,11 @@ repro_torch`` stays cheap.
 """
 
 __all__ = ["Session", "Matrix", "Plan", "PlanStructureError",
-           "api", "configs", "core", "kernels", "launch", "models", "obs"]
+           "api", "configs", "core", "kernels", "launch", "models", "obs",
+           "runtime", "solvers"]
 
-_SUBPACKAGES = ("api", "configs", "core", "kernels", "launch", "models", "obs")
+_SUBPACKAGES = ("api", "configs", "core", "kernels", "launch", "models", "obs",
+                "runtime", "solvers")
 
 
 def __getattr__(name):

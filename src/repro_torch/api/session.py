@@ -12,11 +12,13 @@ paper experiment is a handful of lines::
 
     from repro_torch import Session
 
-    sess = Session(engine="torch", leaf_n=64, bs=8)
+    sess = Session(engine="torch", placement="parent", leaf_n=64, bs=8)
     A = sess.from_dense(a)
     B = sess.from_dense(b)
+    sess.simulate(p=8)                      # build phase places inputs
     C = A @ B                               # one CUDA kernel launch per wave
-    C.to_dense(), sess.engine_stats()["kernel_wall_s"]
+    rep = sess.simulate(fresh_stats=True)   # measured multiply phase
+    C.to_dense(), rep.max_bytes_received, rep.crit.length_s
 
 Every operation lowers through the expression IR (:mod:`repro_torch.api.expr`)
 onto the documented internal layer — the ``qt_*`` free functions of
@@ -43,13 +45,10 @@ import numpy as np
 from repro_torch.core.engine import LeafEngine
 from repro_torch.core.quadtree import (QTParams, qt_from_coo, qt_from_dense,
                                  qt_structure_fp)
-from repro_torch.core.tasks import _NO_SIMULATOR, CostModel, CTGraph
+from repro_torch.core.tasks import CostModel, CTGraph
 from repro_torch.obs.metrics import MetricSet, from_engine_stats, from_sim_report
 from repro_torch.obs.tracer import Tracer, as_tracer
-
-#: the runtime simulator's placement policies (runtime/scheduler.py in the
-#: reference; the simulator itself is not ported yet)
-PLACEMENTS = ("parent-worker", "round-robin", "random")
+from repro_torch.runtime.scheduler import PLACEMENTS
 
 from .expr import (Expr, Transpose, expr_upper, fingerprint, rewrite)
 from .lru import LRUCache
@@ -104,8 +103,7 @@ class Session:
         engine instance serves one session/graph; rebinding raises
         :class:`~repro_torch.core.engine.EngineRebindError`.  Unknown specs
         raise here, not at the first leaf task.
-    placement : default chunk placement for :meth:`simulate` (which
-        raises until the runtime simulator is ported) —
+    placement : default chunk placement for :meth:`simulate` —
         ``"parent"``/``"parent-worker"`` (the paper's locality model),
         ``"round-robin"`` or ``"random"``.
     leaf_n, bs : quadtree leaf dimension and leaf-internal blocksize used
@@ -369,19 +367,59 @@ class Session:
 
     @property
     def scheduler(self):
-        """The session's runtime simulator (not ported yet: raises)."""
-        raise NotImplementedError(_NO_SIMULATOR)
+        """The session's runtime simulator (created on first use)."""
+        if self._sched is None:
+            from repro_torch.runtime.scheduler import Scheduler
+            self._sched = Scheduler(cost=self.cost,
+                                    cache_bytes=self.cache_bytes,
+                                    seed=self.seed, dedup=self.dedup)
+        return self._sched
 
     def simulate(self, p: Optional[int] = None,
                  placement: Optional[str] = None,
                  fresh_stats: bool = False, faults: Any = None):
         """Replay all not-yet-simulated tasks on the virtual cluster.
 
-        The runtime simulator is the port's next slice: until it lands
-        this raises :class:`NotImplementedError` (the reference's
-        ``Session.simulate`` documents the behaviour to come).
+        The scheduler is persistent across calls (chunk placements from an
+        earlier phase — e.g. the task program that *built* the inputs —
+        carry over, paper §7).  ``fresh_stats=True`` zeroes the per-worker
+        counters first so the returned
+        :class:`~repro_torch.runtime.scheduler.SimReport` isolates this phase's
+        communication.  ``p``/``placement`` default to the session's and
+        are pinned by the first call.  To re-simulate a compiled plan's
+        fixed program use :meth:`Plan.simulate`, which replays through
+        :meth:`~repro_torch.runtime.scheduler.Scheduler.replay`.
+
+        ``faults`` injects a deterministic
+        :class:`~repro_torch.runtime.recovery.FaultSchedule` (or an iterable of
+        :class:`~repro_torch.runtime.recovery.FaultEvent`) into this run's
+        simulated timeline — worker deaths, stragglers, elastic
+        join/leave — with lineage or replication recovery (DESIGN.md
+        §10).  The returned report carries the recovery counters
+        (``tasks_recomputed``, ``chunks_lost``, ``bytes_rereplicated``).
+        Dead workers stay out of the pool for later calls.
         """
-        raise NotImplementedError(_NO_SIMULATOR)
+        sched = self.scheduler
+        if fresh_stats:
+            sched.reset_stats()
+        placement = _normalize_placement(placement)
+        if sched.store is None:     # first run: session defaults apply
+            p = p or self.p
+            placement = placement or self.placement
+        if self.tracer.enabled:
+            with self.tracer.span("session.simulate", track="session",
+                                  p=p, placement=placement,
+                                  fresh_stats=fresh_stats) as sp:
+                rep = sched.run(self.graph, n_workers=p,
+                                placement=placement, faults=faults)
+                sp.set(makespan_s=rep.makespan,
+                       tasks=sum(rep.tasks_per_worker),
+                       bytes_received=sum(rep.bytes_received))
+        else:
+            rep = sched.run(self.graph, n_workers=p, placement=placement,
+                            faults=faults)
+        self._last_report = rep
+        return rep
 
     def reset_stats(self) -> None:
         """Zero per-worker comm counters; placements persist (§7)."""
@@ -420,9 +458,11 @@ class Session:
             if tnid is not None:
                 targets.difference_update(
                     _subtree_nids(self.graph, tnid))
-        # engine hook *before* the scheduler early-return: the mesh
-        # executor holds device-resident buffers and ownership/residency
-        # entries for these leaves even when nothing was ever simulated
+        # engine hook *before* the scheduler early-return: an engine that
+        # keeps device-resident state for these leaves (the reference's
+        # mesh executor) must drop it even when nothing was ever
+        # simulated.  TorchEngine copies every wave's result back to the
+        # host and keeps no device buffer, so its hook is the no-op base
         if self.graph._engine is not None:
             self.graph._engine.free_chunks(self.graph, targets)
         sched = self._sched

@@ -12,8 +12,8 @@ ids only — no data transfer), the produced chunk's size, and a cost model of
 the task's work.  Values are computed eagerly so correctness is testable
 against dense numpy.
 
-**Phase B — cluster simulation** (``runtime/scheduler.py``, not ported to
-``repro_torch`` yet; :class:`ClusterSim` raises until it is): a virtual-time discrete-event simulation of
+**Phase B — cluster simulation** (:mod:`repro_torch.runtime.scheduler`, fronted
+here by :class:`ClusterSim`): a virtual-time discrete-event simulation of
 CHT-MPI's scheduling on ``p`` workers:
 
 * each worker owns the tasks registered by tasks it executed (no master);
@@ -33,14 +33,11 @@ under a machine model, peak memory, and task counts.
 from __future__ import annotations
 
 import dataclasses
+import random
 from typing import Any, Callable, Optional
 
+from .chunks import ChunkStore, ChunkId
 from repro_torch.obs.tracer import NOOP
-
-#: the runtime simulator (runtime/scheduler.py, trace.py, recovery.py) is
-#: the next slice of the port; until it lands its entry points raise this
-_NO_SIMULATOR = ("the runtime simulator is not ported to repro_torch yet "
-                 "(ROADMAP.md, queue 1: runtime/scheduler.py)")
 
 NILVAL = None
 
@@ -218,26 +215,75 @@ def _nbytes(obj: Any) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phase B: work-stealing cluster simulation — lives in runtime/scheduler.py,
-# which is not ported yet.
+# Phase B: work-stealing cluster simulation — lives in runtime/scheduler.py.
+# ClusterSim is kept as the historical front door: a thin wrapper over
+# repro_torch.runtime.scheduler.Scheduler pinned to the paper's locality-aware
+# "parent-worker" chunk placement.
 # ---------------------------------------------------------------------------
 
 class ClusterSim:
     """Discrete-event work-stealing simulation of a CHT-MPI cluster.
 
-    In the reference a thin compatibility wrapper over the runtime
-    simulator's ``Scheduler`` with the paper's ``parent-worker``
-    placement.  The simulator is the port's next slice; until it lands,
-    constructing one raises :class:`NotImplementedError`.
+    Thin compatibility wrapper over
+    :class:`repro_torch.runtime.scheduler.Scheduler` with the paper's
+    ``parent-worker`` placement (chunk ownership follows execution).  Use
+    the Scheduler directly for pluggable placement policies, execution
+    traces, and critical-path statistics.
+
+    Persistent across phases: chunk placements from a previous ``run`` (e.g.
+    the task program that *built* the input matrices, cf. paper §7 "the data
+    distribution of input matrices was a result of the task executions that
+    generated those matrices") carry over to the next (the multiply), so the
+    multiply's communication is measured against a realistic distribution.
     """
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_NO_SIMULATOR)
+    def __init__(self, n_workers: int, cache_bytes: int = 1 << 62,
+                 cost: CostModel | None = None, seed: int = 0,
+                 placement: str = "parent-worker"):
+        from repro_torch.runtime.scheduler import Scheduler  # lazy: no cycle
+        self.p = n_workers
+        self._sched = Scheduler(cost=cost, cache_bytes=cache_bytes,
+                                seed=seed)
+        self._placement_policy = placement
+
+    @property
+    def cost(self) -> CostModel:
+        return self._sched.cost
+
+    @property
+    def rng(self) -> random.Random:
+        return self._sched.rng
+
+    @property
+    def store(self) -> ChunkStore:
+        if self._sched.store is None:
+            self._sched._configure(self.p, self._placement_policy)
+        return self._sched.store
+
+    @property
+    def placement(self) -> dict[int, ChunkId]:
+        return self._sched.placement
+
+    @property
+    def _owner_of_node(self) -> dict[int, int]:
+        return self._sched._owner_of_node
+
+    def reset_stats(self) -> None:
+        self.store  # ensure configured
+        self._sched.reset_stats()
+
+    def run(self, g: CTGraph, roots: list[int] | None = None,
+            start_worker: int = 0) -> "SimResult":
+        """Simulate execution of all not-yet-simulated nodes of ``g``."""
+        return self._sched.run(g, n_workers=self.p,
+                               placement=self._placement_policy,
+                               start_worker=start_worker)
 
 
 def __getattr__(name: str):
     # SimResult now lives in the runtime subsystem (as SimReport); keep the
     # old name importable from here.
     if name in ("SimResult", "SimReport"):
-        raise NotImplementedError(_NO_SIMULATOR)
+        from repro_torch.runtime.scheduler import SimReport
+        return SimReport
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -282,6 +282,90 @@ def test_session_runs_through_the_kernels(cuda_device):
         np.testing.assert_allclose(c, a @ a.T, atol=1e-3)
 
 
+def _banded_session(engine, n=512, d=20, p=8):
+    """Build, simulate the build phase, multiply, simulate the multiply."""
+    from repro_torch import Session
+    idx = np.arange(n)
+    a = np.where(np.abs(idx[:, None] - idx[None, :]) <= d,
+                 np.random.default_rng(1).standard_normal((n, n)), 0.0)
+    sess = Session(engine=engine, leaf_n=128, bs=16, p=p, seed=2,
+                   placement="random")
+    A, B = sess.from_dense(a), sess.from_dense(a.T)
+    sess.simulate()
+    C = A @ B
+    return sess, C, sess.simulate(fresh_stats=True)
+
+
+def test_simulate_on_the_card_matches_the_cpu(cuda_device):
+    """``Scheduler.run`` flushes the card's deferred waves before reading
+    the tasks.  The report equals the torch engine's on the CPU (float32
+    leaves on both), and its task counts and flops equal the numpy
+    engine's (whose float64 leaves move twice the bytes)."""
+    card, c_card, r_card = _banded_session(TorchEngine())
+    cpu, _, r_cpu = _banded_session(TorchEngine(device="cpu"))
+    host, c_host, r_host = _banded_session("numpy")
+    assert card.engine_stats()["waves"] > 0
+    assert r_card.to_dict() == r_cpu.to_dict()
+    assert r_card.trace.schedule() == r_cpu.trace.schedule()
+    assert r_card.n_tasks == r_host.n_tasks
+    assert r_card.total_flops == r_host.total_flops
+    assert [n.flops for n in card.graph.nodes] == \
+        [n.flops for n in host.graph.nodes]
+    np.testing.assert_allclose(c_card.to_dense(), c_host.to_dense(),
+                               atol=1e-4)
+
+
+def test_inverse_factor_on_the_card_matches_the_cpu(cuda_device):
+    """``inverse_factor(method="localized")`` at n = 512: every multiply
+    a bsmm_pairs wave on the card, within the reference's float32
+    tolerance of the same factorization on the CPU."""
+    from repro_torch import Session
+    from repro_torch.solvers import inverse_factor
+    n = 512
+    idx = np.arange(n)
+    dist = np.abs(idx[:, None] - idx[None, :])
+    rng = np.random.default_rng(0)
+    s = np.where(dist <= 8, rng.standard_normal((n, n)), 0.0) * 0.5 ** dist
+    s = (s + s.T) / 2.0
+    s *= 0.45 / (np.abs(s).sum(1) - np.abs(np.diag(s))).max()
+    np.fill_diagonal(s, 1.0)
+    out = []
+    for engine in (TorchEngine(), TorchEngine(device="cpu")):
+        sess = Session(engine=engine, leaf_n=64, bs=16)
+        before = ops.LAUNCHES["bsmm_pairs"]
+        z, rep = inverse_factor(sess.from_dense(s, upper=True),
+                                method="localized", tol=1e-4, tau=1e-7)
+        out.append((z.to_dense(), rep, ops.LAUNCHES["bsmm_pairs"] - before))
+    (zc, rc, launched), (zh, rh, _) = out
+    assert launched > 0
+    assert rc.converged and rc.residual <= 2e-4 and rc.splits == rh.splits
+    np.testing.assert_allclose(zc, zh, atol=2e-4, rtol=2e-4)
+    np.testing.assert_allclose(zc.T @ s @ zc, np.eye(n), atol=2e-4,
+                               rtol=2e-4)
+
+
+def test_free_on_the_card_releases_device_memory(cuda_device):
+    """``Session.free`` after a simulated multiply: the chunk store's
+    owned bytes drop by what it reports, and no device memory stays
+    allocated for the freed matrix (each wave's buffers are released once
+    its result is back on the host)."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    sess, c, _ = _banded_session(TorchEngine())
+    c.to_dense()
+    stats = sess.scheduler.store.stats
+    owned = sum(st.owned_bytes for st in stats)
+    freed = sess.free(c)
+    assert freed > 0
+    assert sum(st.owned_bytes for st in stats) == owned - freed
+    del c
+    gc.collect()
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == base
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("h,s,d,window,block", [

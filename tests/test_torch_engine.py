@@ -348,5 +348,13 @@ class TestEngineContract:
             g.flush()
 
     def test_simulator_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_tasks.ClusterSim(4)
+        """The simulator is ported (``ClusterSim`` runs); the training
+        loop's fault injection is not, and says where it is queued."""
+        g = PORT.CTGraph(engine="numpy")
+        p = PORT.QTParams(32, 16, 4)
+        r = PORT.qt_from_dense(g, np.eye(32), p)
+        PORT.qt_multiply(g, p, r, r)
+        assert t_tasks.ClusterSim(4).run(g).n_tasks == len(g.nodes)
+        import repro_torch.runtime as rt
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+            rt.FaultInjector

@@ -191,12 +191,19 @@ class TestFacadeContract:
             make_engine(None)
 
     def test_simulator_not_ported(self):
+        """``simulate`` and ``reset_stats`` run now; what the runtime has
+        not ported (compression, fault injection, elastic remeshing of the
+        training loop) raises and names its ROADMAP item."""
         sess = repro_torch.Session(engine="numpy", leaf_n=16, bs=4)
         sess.from_dense(np.eye(32))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sess.simulate(p=4)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            sess.reset_stats()
+        assert sess.simulate(p=4).n_workers == 4
+        sess.reset_stats()
+        assert all(st.bytes_received == 0 and st.messages_received == 0
+                   for st in sess.scheduler.store.stats)
+        import repro_torch.runtime as rt
+        for name in ("quantize_int8", "TrainingRunner", "reshard_tree"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+                getattr(rt, name)
 
     def test_metrics_source(self):
         sess = repro_torch.Session(engine=TorchEngine(device="cpu"),
@@ -208,17 +215,32 @@ class TestFacadeContract:
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """A whole CPU ``A @ B`` session loads no jax and no ``repro`` module."""
+    """A whole CPU ``A @ B`` session, simulated, and the solvers load no
+    jax and no ``repro`` module; importing the runtime and the analysis
+    starts no CUDA context."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
+        import torch
+        import repro_torch.runtime as rt
+        from repro_torch.core import analysis
+        from repro_torch.runtime import FaultSchedule, Scheduler, kill
+        assert not torch.cuda.is_initialized()
         import repro_torch
         from repro_torch.core.engine import TorchEngine
+        from repro_torch.solvers import (TauPolicy, inverse_factor,
+                                         multiply_chain, scf_density)
         sess = repro_torch.Session(engine=TorchEngine(device="cpu"),
-                                   leaf_n=16, bs=4)
+                                   leaf_n=16, bs=4, p=4)
         a = np.triu(np.tril(np.ones((64, 64)), 3), -3)
         c = (sess.from_dense(a) @ sess.from_dense(a).T).to_dense()
         assert np.allclose(c, a @ a.T, atol=1e-4)
+        rep = sess.simulate(faults=FaultSchedule(events=[kill(0.0, 3)]))
+        assert analysis.comm_summary(rep.bytes_received)["n_workers"] == 4
+        s = np.eye(64) + 0.1 * (np.eye(64, k=1) + np.eye(64, k=-1))
+        z, frep = inverse_factor(sess.from_dense(s, upper=True),
+                                 method="localized", tol=1e-4)
+        assert frep.converged
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro.")]
