@@ -81,10 +81,41 @@ lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              ``scaled_dot_product_attention`` with a band mask on k and v
              copied over each group beforehand (a yardstick the port never
              calls); ``lm_serve.generate`` at batch 4, prompt 32, gen 16,
-             every token in [0, vocab).  The attention kernel is held
-             element by element against the plain version's float32
-             result (the rule of phase 2); on layer 0 the plain version
-             with the band one 64-key tile short must fail that check.
+             every token in [0, vocab), then the same decode again under
+             ``torch.profiler`` for the device's idle share (as in phase
+             serve below; tracing slows the host, so the device's busy
+             time over the untraced decode is printed beside it).  The
+             attention kernel is held element by element against the
+             plain version's float32 result (the rule of phase 2); on
+             layer 0 the plain version with the band one 64-key tile short
+             must fail that check.
+serve   — after lm, since a profiler session makes every later kernel
+             launch of the process cost the host more:
+             ``repro_torch.serve.PlanServer()`` on the card (its default
+             device; 4 sessions, each with its own ``TorchEngine``,
+             leaf_n 1024, bs 32) at n = 4096: three registered banded
+             matrices (element half-bandwidth 128, seeded values as in
+             phase 3) and a stream of 32 multiplies cycling over their
+             pairs; one warmup pass at max_inflight 8, then a measured pass
+             at each max_inflight of 1, 2, 4 and 8.  Then, on a
+             ``prewarm=True`` server, ``Zᵀ F Z`` and ``Zᵀ S Z`` (S and F the
+             solvers phase's tables at n = 4096, Z S's inverse Cholesky
+             factor with blocks of norm below 1e-7 dropped) and 8 SP2
+             iterations from F scaled by its Gershgorin bounds (ne = n/4).
+             Every result equals the same request served alone on the card
+             bitwise, and each request alone is within tol sqrt(n/64) of a
+             float64 product on the card (relative Frobenius; tol 1e-4 for
+             products, 1e-3 for SP2).  Each measured pass: hit rate 1.0,
+             no new task, no cold compile, merged waves at max_inflight
+             >= 2, every serving wave one bsmm_pairs launch on the mma
+             design; the SP2 request meets its prewarmed replicas (no
+             cache miss, no compile time).  Per pass: requests/s,
+             p50/p95/p99 ms, merged, solo and engine-own waves, the
+             kernel's CUDA-event share of the wall time, and the device's
+             idle share from a ``torch.profiler`` trace of the pass (one
+             minus the union of CUDA kernel, memcpy and memset intervals
+             over the pass, CUDA activity only, the window opened and
+             closed by a one-element add on the card).
 4. report  — per phase the engine's wave stats and launch counts; per
              kernel its time on the card at the main path's largest wave
              (CUDA events), its bound (both terms: bytes over the HBM rate,
@@ -112,17 +143,6 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
-
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, float32 FMA outside
-#: the tensor cores, and dense TF32 and bf16 tensor cores, in FLOP/s
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
-TF32_FLOPS = 495e12
-BF16_FLOPS = 989e12
-#: float32 products on the tensor cores that keep float32's error take three
-#: TF32 products each (3xTF32: a_hi b_hi + a_hi b_lo + a_lo b_hi), so the
-#: least time of float32 multiply work is set by this rate, not FP32_FLOPS
-FP32_3XTF32_FLOPS = TF32_FLOPS / 3
 
 #: the TPU kernel each CUDA kernel replaces (pl.pallas_call sites)
 REPLACES = {"bsmm_pairs": "src/repro/kernels/bsmm_pairs.py:78",
@@ -175,7 +195,9 @@ def cuda_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
 
 def bound_ms(n_bytes: float, flops: float, peak: float) -> dict:
     """The least time of the work, in ms: the larger of its bytes over the
-    HBM rate and its operations over ``peak``; both terms are kept."""
+    HBM rate and its operations over ``peak``; both terms are kept.  The
+    H100's peaks are those of :mod:`repro_torch.launch.roofline`."""
+    from repro_torch.launch.roofline import HBM_BPS
     tb, tf = n_bytes / HBM_BPS * 1e3, flops / peak * 1e3
     return {"bound_ms": max(tb, tf),
             "bound_by": "bytes" if tb >= tf else "operations",
@@ -184,6 +206,7 @@ def bound_ms(n_bytes: float, flops: float, peak: float) -> dict:
 
 def multiply_peak(torch, dtype) -> float:
     """The operations rate that bounds float32 or bf16 multiply work."""
+    from repro_torch.launch.roofline import BF16_FLOPS, FP32_3XTF32_FLOPS
     return BF16_FLOPS if dtype == torch.bfloat16 else FP32_3XTF32_FLOPS
 
 
@@ -733,7 +756,7 @@ def time_bs8_wave(torch, ref) -> dict:
            "shape": {"pairs": len(seg), "c_blocks": cap_c,
                      "a_blocks": n_blocks, "b_blocks": n_blocks, "bs": bs,
                      "dtype": "torch.float32"},
-           **bound_ms(n_bytes, flops, FP32_3XTF32_FLOPS)}
+           **bound_ms(n_bytes, flops, multiply_peak(torch, torch.float32))}
     res.update(rates(res))
     del ga, gb
     torch.cuda.empty_cache()
@@ -1103,6 +1126,324 @@ def solver_phase(torch, ops, launches, n=SOLVER_N, scf_n=SCF_N,
 
 
 # ---------------------------------------------------------------------------
+# phase serve: plan serving on the card
+# ---------------------------------------------------------------------------
+
+#: serve sizes: n, element half-bandwidth of the multiply operands, leaf_n
+#: (bs is BS); pooled sessions; requests a pass; max_inflight of the
+#: measured passes; SP2 iterations
+SERVE_N, SERVE_HB, SERVE_LEAF_N = 4096, 128, 1024
+SERVE_SESSIONS, SERVE_REQUESTS = 4, 32
+SERVE_INFLIGHT = (1, 2, 4, 8)
+SERVE_SP2_ITERS = 8
+#: the reference's float32 tolerances at n = 64 (relative Frobenius):
+#: its serving tests' 1e-4 for products, 1e-3 for SP2 iterates; each is
+#: scaled by sqrt(n / 64) at SERVE_N (PERF.md §4)
+SERVE_TOL = {"multiply": 1e-4, "congruence": 1e-4, "sp2": 1e-3}
+TRACE_DIR = ROOT / "build" / "traces"
+
+
+def device_idle(torch, fn, name: str) -> tuple:
+    """Run ``fn()`` under ``torch.profiler`` with CUDA activity only (no
+    CPU op is recorded, so the host, which sets the pace here, is slowed
+    less) and return ``(fn(), idle)``.  After a session every kernel
+    launch of the process costs the host more (CUPTI stays attached), so
+    a timed run of many launches must come before the first session.  A
+    one-element add on the card opens and closes the window: the device
+    is idle at both, so they run as the host reaches them.  ``idle`` is
+    one minus the union of the CUDA kernel, memcpy and memset intervals
+    over the window: the device's idle share of that run."""
+    from torch.profiler import ProfilerActivity, profile
+    device = ("kernel", "gpu_memcpy", "gpu_memset")
+    mark = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mark.add_(1)
+        out = fn()
+        torch.cuda.synchronize()
+        mark.add_(1)
+        torch.cuda.synchronize()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{name}.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and e.get("cat") in device]
+    path.unlink()
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events)
+    kinds = {c: sum(e["cat"] == c for e in events) for c in device}
+    if kinds["kernel"] < 3:
+        raise AssertionError(f"{name}: the profiler trace holds {kinds}; "
+                             f"no idle share")
+    t0, t1 = spans[0][0], max(b for _, b in spans)
+    busy, end = 0.0, t0
+    for a, b in spans:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    return out, {"idle_share": 1.0 - busy / (t1 - t0),
+                 "window_s": (t1 - t0) / 1e6, "device_busy_s": busy / 1e6,
+                 "device_events": kinds}
+
+
+def serve_operands(torch, n=SERVE_N) -> dict:
+    """The registered matrices, dense float64: M0..M2 banded (element
+    half-bandwidth SERVE_HB, seeded hashed values as in phase 3); S and F
+    from the solvers phase's tables at n; Z, S's inverse Cholesky factor
+    (float64 on the card, upper, ZᵀSZ = I) with every BS x BS block of
+    Frobenius norm below 1e-7 dropped; X, the SP2 start from F scaled by
+    its Gershgorin bounds, (hi I - F) / (hi - lo)."""
+    from repro_torch.core.patterns import banded_pairs
+    rows, cols = banded_pairs(n, SERVE_HB)
+    mats = {}
+    for i in range(3):
+        a = np.zeros((n, n))
+        a[rows, cols] = hashed_values(i + 1)(rows, cols)
+        mats[f"M{i}"] = a
+    s = table_dense(torch, overlap_table(n, BAND_W, 0), n, "cuda")
+    f = table_dense(torch, fock_table(n, BAND_W, 0), n, "cuda")
+    z = torch.linalg.solve_triangular(
+        torch.linalg.cholesky(s), torch.eye(n, dtype=torch.float64,
+                                            device="cuda"), upper=False).T
+    g = n // BS
+    norms = z.reshape(g, BS, g, BS).pow(2).sum((1, 3)).sqrt()
+    z = z * (norms >= 1e-7).repeat_interleave(BS, 0).repeat_interleave(BS, 1)
+    mats["S"], mats["F"], mats["Z"] = (t.cpu().numpy() for t in (s, f, z))
+    fa = mats["F"]
+    r = np.abs(fa).sum(1) - np.abs(np.diag(fa))
+    lo, hi = (np.diag(fa) - r).min(), (np.diag(fa) + r).max()
+    mats["X"] = (hi * np.eye(n) - fa) / (hi - lo)
+    return mats
+
+
+def serve_float64(torch, mats, req, ne):
+    """The float64 result of a request on the card, and for SP2 the least
+    distance of a trace from ``ne`` over the iterations (the branch
+    margin)."""
+    dev = {k: torch.from_numpy(mats[k]).cuda()
+           for k in {req.a, req.b, req.x0} - {""}}
+    if req.kind == "multiply":
+        return dev[req.a] @ dev[req.b], None
+    if req.kind == "congruence":
+        z = dev[req.a]
+        return z.T @ dev[req.b] @ z, None
+    x, margin = dev[req.x0], float("inf")
+    for _ in range(req.iters):
+        tr = float(torch.trace(x))
+        margin = min(margin, abs(tr - ne))
+        x2 = x @ x
+        x = x2 if tr > ne else 2 * x - x2
+    return x, margin
+
+
+def serve_check(torch, name, got, want, tol, n) -> float:
+    """||got - want||_F / ||want||_F within tol sqrt(n / 64)."""
+    import math
+    g = torch.from_numpy(got).cuda()
+    err = float(torch.linalg.norm(g - want) / torch.linalg.norm(want))
+    if not err <= tol * math.sqrt(n / 64):
+        raise AssertionError(f"serve {name}: relative Frobenius error {err} "
+                             f"> {tol} sqrt(n/64)")
+    return err
+
+
+def wave_marks(srv) -> dict:
+    """The waves a server has run: the coalescer's dispatches, and the
+    waves an engine flushed on its own (a rebind flushes the pending work
+    that reads the rebound input), which its log keeps without
+    ``coalesced``."""
+    own = sum(1 for s in srv.sessions for w in s.graph.engine._waves
+              if "coalesced" not in w)
+    return {"coalescer": len(srv.coalescer.waves), "own": own}
+
+
+def serve_pass(torch, ops, launches, srv, reqs, name) -> tuple:
+    """One measured pass: counts zeroed just before, read just after; the
+    pass under a :class:`StepClock` (the kernel's CUDA-event time) inside
+    a profiler window (the device's idle share)."""
+    tasks0, cold0 = srv.task_count(), srv.counters["cold_compiles"]
+    c0, co0 = srv.cache.counters(), srv.coalescer.counters()
+    marks = wave_marks(srv)
+    reset_counts()
+
+    def run():
+        with StepClock(torch, ops) as clock:
+            t0 = time.perf_counter()
+            tickets = [srv.submit(r) for r in reqs]
+            srv.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return clock, tickets, wall
+
+    (clock, tickets, wall), idle = device_idle(torch, run, name)
+    rec = clock.summary(launches)
+    bad = [t.error for t in tickets if not t.done]
+    if bad:
+        raise AssertionError(f"serve {name}: failed requests {bad}")
+    c, co = srv.cache.counters(), srv.coalescer.counters()
+    hits, misses = c["hits"] - c0["hits"], c["misses"] - c0["misses"]
+    lat = np.array([t.latency_s for t in tickets]) * 1e3
+    after = wave_marks(srv)
+    own = after["own"] - marks["own"]
+    waves = own + after["coalescer"] - marks["coalescer"]
+    rec.update(
+        requests=len(reqs), pass_s=wall, requests_per_s=len(reqs) / wall,
+        p50_ms=float(np.percentile(lat, 50)),
+        p95_ms=float(np.percentile(lat, 95)),
+        p99_ms=float(np.percentile(lat, 99)),
+        hit_rate=hits / max(hits + misses, 1),
+        new_tasks=srv.task_count() - tasks0,
+        cold_compiles=srv.counters["cold_compiles"] - cold0,
+        merged_waves=co["merged_waves"] - co0["merged_waves"],
+        solo_waves=co["solo_waves"] - co0["solo_waves"],
+        own_waves=own, waves=waves,
+        **idle)
+    if rec["launches"]["bsmm_pairs"] != waves or any(
+            rec["launches"][k] for k in rec["launches"] if k != "bsmm_pairs"):
+        raise AssertionError(f"serve {name}: launches {rec['launches']} "
+                             f"against {waves} serving waves")
+    return tickets, rec
+
+
+def serve_phase(torch, ops, launches) -> dict:
+    """``repro_torch.serve.PlanServer()`` on the card: a stream of
+    SERVE_REQUESTS multiplies over three registered banded matrices, one
+    warmup pass, then a measured pass at each max_inflight of
+    SERVE_INFLIGHT; then two congruences and one SP2 request on a
+    ``prewarm=True`` server; every result held bitwise against the same
+    request served alone on the card and within the scaled float32 rule
+    of a float64 product on the card."""
+    from repro_torch.serve import PlanServer, Request
+    n = SERVE_N
+    out = {"n": n, "leaf_n": SERVE_LEAF_N, "bs": BS,
+           "sessions": SERVE_SESSIONS, "requests": SERVE_REQUESTS}
+    t0 = time.perf_counter()
+    mats = serve_operands(torch, n)
+    out["operands_s"] = time.perf_counter() - t0
+    names = ["M0", "M1", "M2"]
+    stream = [Request.multiply(names[i % 3], names[(i + 1) % 3])
+              for i in range(SERVE_REQUESTS)]
+    ne = n / 4
+    mixed = [Request.congruence("Z", "F"), Request.congruence("Z", "S"),
+             Request.sp2("X", ne=ne, iters=SERVE_SP2_ITERS)]
+
+    # the serial reference: each distinct request served alone on the card
+    t0 = time.perf_counter()
+    alone = PlanServer(n_sessions=1, max_inflight=1, leaf_n=SERVE_LEAF_N,
+                       bs=BS)
+    for k, a in mats.items():
+        alone.register(k, a)
+    serial, errs = {}, {}
+    for r in stream[:3] + mixed:
+        t = alone.submit(r)
+        alone.drain()
+        if not t.done:
+            raise AssertionError(f"serve alone {r}: {t.error}")
+        want, margin = serve_float64(torch, mats, r, ne)
+        if margin is not None and not margin > 0.05:
+            raise AssertionError(f"serve sp2: a trace within {margin} of "
+                                 f"ne; the float32 branches are undecided")
+        key = f"{r.kind}({r.a or r.x0},{r.b})"
+        errs[key] = serve_check(torch, key, t.result, want,
+                                SERVE_TOL[r.kind], n)
+        serial[r] = t.result
+        del want
+    del alone
+    out["alone_s"] = time.perf_counter() - t0
+    out["float64_rel_err"] = errs
+    log(f"  alone: {out['alone_s']:.3f} s; relative Frobenius errors "
+        f"against float64 on the card {json.dumps(errs)}")
+
+    def same_as_alone(tickets, what):
+        for t in tickets:
+            if not np.array_equal(t.result, serial[t.request]):
+                raise AssertionError(f"serve {what}: {t.request} differs "
+                                     f"from the same request served alone")
+
+    t0 = time.perf_counter()
+    srv = PlanServer(n_sessions=SERVE_SESSIONS,
+                     max_inflight=max(SERVE_INFLIGHT),
+                     max_queue=SERVE_REQUESTS, leaf_n=SERVE_LEAF_N, bs=BS)
+    if any(s.graph.engine.device.type != "cuda" for s in srv.sessions):
+        raise AssertionError("PlanServer() did not serve on the card")
+    for k in names:
+        srv.register(k, mats[k])
+    out["register_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in stream:
+        srv.submit(r)
+    srv.drain()
+    out["warmup_s"] = time.perf_counter() - t0
+    out["warm_tasks"] = srv.task_count()
+    log(f"  server: register {out['register_s']:.3f} s, warmup pass "
+        f"(max_inflight {max(SERVE_INFLIGHT)}) {out['warmup_s']:.3f} s, "
+        f"{out['warm_tasks']} tasks")
+    passes = {}
+    for mi in SERVE_INFLIGHT:
+        srv.config.max_inflight = mi
+        tickets, rec = serve_pass(torch, ops, launches, srv, stream,
+                                  f"serve_mi{mi}")
+        same_as_alone(tickets, f"max_inflight={mi}")
+        del tickets
+        if not (rec["hit_rate"] == 1.0 and rec["new_tasks"] == 0
+                and rec["cold_compiles"] == 0):
+            raise AssertionError(f"serve max_inflight={mi}: not warm {rec}")
+        if mi >= 2 and rec["merged_waves"] <= 0:
+            raise AssertionError(f"serve max_inflight={mi}: no merged wave")
+        passes[mi] = rec
+        log(f"  max_inflight={mi}: {rec['requests_per_s']:.3f} req/s "
+            f"p50={rec['p50_ms']:.1f} p95={rec['p95_ms']:.1f} "
+            f"p99={rec['p99_ms']:.1f} ms; waves merged "
+            f"{rec['merged_waves']} solo {rec['solo_waves']} own "
+            f"{rec['own_waves']}; bsmm_pairs launches "
+            f"{rec['launches']['bsmm_pairs']} {rec['bsmm_pairs_designs']}; "
+            f"kernel_ms={rec['kernel_ms']:.3f} kernel_share="
+            f"{rec['kernel_share']:.5f} idle_share={rec['idle_share']:.4f} "
+            f"(window {rec['window_s']:.3f} s, device busy "
+            f"{rec['device_busy_s']:.4f} s, {rec['device_events']}); "
+            f"dense round trips (host s) "
+            f"{json.dumps(rec['dense_round_trip_s'])}")
+    out["passes"] = passes
+    del srv
+
+    # the mixed requests on a prewarmed server: SP2 meets warm replicas
+    t0 = time.perf_counter()
+    pw = PlanServer(n_sessions=SERVE_SESSIONS, max_inflight=4,
+                    leaf_n=SERVE_LEAF_N, bs=BS, prewarm=True)
+    for k in ("Z", "S", "F", "X"):
+        pw.register(k, mats[k])
+    out["prewarm_s"] = time.perf_counter() - t0
+    tickets, rec = serve_pass(torch, ops, launches, pw, mixed, "serve_mixed")
+    same_as_alone(tickets, "mixed")
+    sp2 = tickets[-1]
+    rec.update(sp2_units=len(sp2.replay_s), sp2_cache_misses=sp2.cache_misses,
+               sp2_compile_s=sp2.compile_s,
+               recompiled=sum(len(p._recompiled) for s in pw.sessions
+                              for p in s._plans.values()))
+    if not (sp2.cache_misses == 0 and sp2.compile_s == 0.0
+            and rec["cold_compiles"] <= 2):
+        raise AssertionError(f"serve mixed: SP2 missed its prewarmed "
+                             f"replicas {rec}")
+    out["mixed"] = rec
+    log(f"  mixed (prewarm {out['prewarm_s']:.3f} s): "
+        f"{rec['pass_s']:.3f} s, latencies "
+        f"{[round(t.latency_s, 3) for t in tickets]} s; SP2 {rec['sp2_units']}"
+        f" units, cache misses {rec['sp2_cache_misses']}, cold compiles "
+        f"{rec['cold_compiles']} (the congruence shape), recompiled "
+        f"successors {rec['recompiled']}, new tasks {rec['new_tasks']}; "
+        f"waves merged {rec['merged_waves']} solo {rec['solo_waves']} own "
+        f"{rec['own_waves']}; launches {rec['launches']['bsmm_pairs']} "
+        f"{rec['bsmm_pairs_designs']}; kernel_share "
+        f"{rec['kernel_share']:.5f} idle_share {rec['idle_share']:.4f}")
+    out["launches"] = {k: sum(p["launches"][k] for p in
+                              list(passes.values()) + [rec])
+                       for k in launches}
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase lm: the LM substrate at full width
 # ---------------------------------------------------------------------------
 
@@ -1213,6 +1554,7 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
     flops = 4.0 * d * pairs * h                 # q k^T and p v
     # q and k, v read once, o written once
     n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    from repro_torch.launch.roofline import BF16_FLOPS, FP32_FLOPS
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     res = {"ms": cuda_ms(torch, kern, reps=5, warmup=1),
            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
@@ -1363,13 +1705,32 @@ def lm_phase(torch, ops, ref, launches) -> dict:
                                              and (toks_out < cfg.vocab).all()):
         raise AssertionError(f"generate gave {toks_out.shape} tokens outside "
                              f"[0, {cfg.vocab})")
+    # the same decode again under the profiler: the device's idle share
+    # (a run of its own, so that the profiler leaves the times above alone)
+    t0 = time.perf_counter()
+    again, idle = device_idle(
+        torch, lambda: lm_serve.generate(cfg, params, prompts, n_gen,
+                                         plen + n_gen), "decode")
+    idle["traced_s"] = time.perf_counter() - t0
+    # tracing a launch costs the host, which sets the decode's pace, so
+    # the window is longer than the untraced decode: the device's busy
+    # time over the untraced decode's seconds is the share without it
+    idle["idle_share_untraced"] = 1.0 - idle["device_busy_s"] / serve_s
+    if again.shape != toks_out.shape:
+        raise AssertionError(f"the traced decode gave {again.shape} tokens")
     out["serve"] = {"batch": bs, "prompt": plen, "gen": n_gen,
                     "seconds": serve_s, "tokens_per_s": bs * n_gen / serve_s,
                     "steps_per_s": (plen + n_gen - 1) / serve_s,
-                    "launches": serve_counts, "sample": toks_out[0].tolist()}
+                    "launches": serve_counts, "sample": toks_out[0].tolist(),
+                    "decode_idle": idle}
     log(f"  serve batch {bs} prompt {plen} gen {n_gen}: {serve_s:.3f} s, "
         f"{bs * n_gen / serve_s:.1f} tokens/s, "
-        f"{(plen + n_gen - 1) / serve_s:.1f} steps/s")
+        f"{(plen + n_gen - 1) / serve_s:.1f} steps/s; traced again "
+        f"({idle['traced_s']:.3f} s): device idle_share="
+        f"{idle['idle_share']:.4f} (window {idle['window_s']:.3f} s, "
+        f"device busy {idle['device_busy_s']:.4f} s, "
+        f"{idle['device_events']}); busy over the untraced decode: "
+        f"idle_share={idle['idle_share_untraced']:.4f}")
     out["launches"] = {k: counts[k] + serve_counts[k] for k in counts}
     log(f"    card: {gpu_name_and_limit()}")
     return out
@@ -1527,6 +1888,18 @@ def main() -> int:
              for k in _build.KERNELS}
     log(f"  lm_s={time.perf_counter() - t0:.3f} launches={total}")
 
+    # serve runs last but the report: a profiler session leaves a cost on
+    # every later kernel launch of the process (CUPTI), which would slow
+    # the host-bound decode above; lm's own traced decode comes after its
+    # timed runs for the same reason
+    log("phase serve: repro_torch.serve.PlanServer() on the card")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve = serve_phase(torch, ops, _build.LAUNCHES)
+    serve["serve_s"] = time.perf_counter() - t0
+    total["bsmm_pairs"] += serve["launches"]["bsmm_pairs"]
+    log(f"  serve_s={serve['serve_s']:.3f} launches={total}")
+
     log("phase 4: report")
     rows = kernel_rows(phases, total, worst)
     elapsed = time.perf_counter() - t_start
@@ -1534,7 +1907,8 @@ def main() -> int:
         f"{build_share / elapsed:.3f}")
     log("record: " + json.dumps({"card": card, "phases": phases,
                                  "bs8_wave": bs8, "sim": sim,
-                                 "solvers": solvers, "smoke_s": elapsed}))
+                                 "solvers": solvers, "serve": serve,
+                                 "smoke_s": elapsed}))
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}
                                 for r in rows]}))

@@ -10,7 +10,9 @@ sliding-window attention through the ``banded_attention`` kernel.  The
 runtime simulator (``repro_torch.runtime``) replays a session's task graph
 on a virtual cluster, and ``repro_torch.solvers`` holds the
 electronic-structure solvers (inverse factorization, truncated chains,
-SCF density).  The subsystems remain importable directly
+SCF density).  ``repro_torch.serve`` serves multiply and SP2 requests
+over compiled plans, coalescing their waves across sessions into shared
+kernel launches.  The subsystems remain importable directly
 (``repro_torch.core``, ``repro_torch.kernels``, ...).
 
 The package imports ``torch`` and numpy, never ``jax`` and never the
@@ -20,10 +22,10 @@ repro_torch`` stays cheap.
 
 __all__ = ["Session", "Matrix", "Plan", "PlanStructureError",
            "api", "configs", "core", "kernels", "launch", "models", "obs",
-           "runtime", "solvers"]
+           "runtime", "serve", "solvers"]
 
 _SUBPACKAGES = ("api", "configs", "core", "kernels", "launch", "models", "obs",
-                "runtime", "solvers")
+                "runtime", "serve", "solvers")
 
 
 def __getattr__(name):

@@ -495,3 +495,114 @@ def test_lm_prefill_runs_through_the_kernel(cuda_device, batch):
         torch.cuda.synchronize()
     assert ops.LAUNCHES["block_attention"] == before + cfg.n_layers
     assert float((got.cpu() - want).abs().max()) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# plan serving on the card
+# ---------------------------------------------------------------------------
+
+def _serve_mats(n=256, seed=0):
+    """Three banded operands (half-bandwidth 40) and a symmetric iterate
+    with eigenvalues in [0, 1] on full support."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(n)
+    band = np.abs(i[:, None] - i[None, :]) <= 40
+    mats = {f"M{k}": rng.standard_normal((n, n)) * band for k in range(3)}
+    h = rng.standard_normal((n, n))
+    w, v = np.linalg.eigh((h + h.T) / 2)
+    mats["X"] = v @ np.diag((w.max() - w) / (w.max() - w.min())) @ v.T
+    return mats
+
+
+def _serve_reqs():
+    from repro_torch.serve import Request
+    return [Request.multiply("M0", "M1"), Request.multiply("M1", "M2"),
+            Request.multiply("M2", "M0"), Request.multiply("M0", "M0"),
+            Request.sp2("X", ne=64.0, iters=3)]
+
+
+def _serve_on_card(reqs, mats, **cfg):
+    """Serve ``reqs`` on the card (``PlanServer()``'s default device),
+    leaf_n 64, bs 32; returns the server and the results."""
+    from repro_torch.serve import PlanServer
+    srv = PlanServer(leaf_n=64, bs=32, max_queue=32, **cfg)
+    for nm, a in mats.items():
+        srv.register(nm, a)
+    tickets = [srv.submit(r) for r in reqs]
+    srv.drain()
+    assert all(t.done for t in tickets), [t.error for t in tickets]
+    return srv, [t.result for t in tickets]
+
+
+def test_serve_coalesced_equals_serial_on_the_card(cuda_device):
+    """Two sessions on the card, four requests in flight: every result
+    equals the same request served alone, bitwise (each ``bsmm_pairs``
+    slot sums its own run of pairs, whatever else shares the wave), and
+    the float64 product within float32 rounding."""
+    mats = _serve_mats()
+    reqs = _serve_reqs()
+    srv, got = _serve_on_card(reqs, mats, n_sessions=2, max_inflight=4)
+    assert all(s.graph.engine.device.type == "cuda" for s in srv.sessions)
+    assert srv.coalescer.merged_waves > 0
+    for r, g in zip(reqs, got):
+        _, (want,) = _serve_on_card([r], mats, n_sessions=1, max_inflight=1)
+        np.testing.assert_array_equal(g, want)
+    for r, g in zip(reqs[:4], got):
+        want = mats[r.a] @ mats[r.b]
+        assert np.linalg.norm(g - want) <= 1e-5 * np.linalg.norm(want)
+
+
+def test_serve_prewarm_leaves_no_cold_compile_on_the_card(cuda_device):
+    from repro_torch.serve import Request
+    mats = {"X": _serve_mats()["X"]}
+    reqs = [Request.sp2("X", ne=64.0, iters=3)] * 3
+    srv, _ = _serve_on_card(reqs, mats, n_sessions=2, max_inflight=4,
+                            prewarm=True)
+    assert srv.counters["cold_compiles"] == 0
+    assert srv.coalescer.merged_waves > 0
+
+
+def serving_waves(srv) -> int:
+    """The waves a server ran: the coalescer's dispatches, and the waves
+    an engine flushed on its own (a rebind flushes the pending work that
+    reads the rebound input), which its log keeps without ``coalesced``."""
+    own = sum(1 for s in srv.sessions for w in s.graph.engine._waves
+              if "coalesced" not in w)
+    return len(srv.coalescer.waves) + own
+
+
+def test_every_serving_wave_is_a_bsmm_pairs_mma_launch(cuda_device):
+    """Each serving wave is one ``bsmm_pairs`` launch on the tensor-core
+    design, and no other kernel runs."""
+    from repro_torch.kernels import _build
+    mats = _serve_mats()
+    _build.reset_launches()
+    srv, _ = _serve_on_card(_serve_reqs(), mats, n_sessions=2,
+                            max_inflight=4)
+    waves = serving_waves(srv)
+    assert len(srv.coalescer.waves) > 0
+    assert ops.LAUNCHES == {"bsmm_pairs": waves, "batched_gemm": 0,
+                            "block_attention": 0}
+    assert ops.VARIANT_LAUNCHES["bsmm_pairs"] == {"fma": 0, "mma": waves}
+
+
+def test_engines_on_the_card_and_the_cpu_never_share_a_wave(cuda_device):
+    from repro_torch import Session
+    from repro_torch.serve import WaveCoalescer
+    rng = np.random.default_rng(3)
+    outs, vals, graphs = [], [], []
+    for dev in ("cuda", "cpu"):
+        sess = Session(engine=TorchEngine(device=dev), lazy=True, leaf_n=64,
+                       bs=32)
+        v = rng.standard_normal((128, 128))
+        x = sess.from_dense(v, name="X")
+        plan = sess.compile(x @ x)
+        plan.run()
+        outs.append(plan.run(X=v, flush=False))
+        vals.append(v)
+        graphs.append(sess.graph)
+    co = WaveCoalescer()
+    assert co.flush(graphs) == 2
+    assert co.merged_waves == 0 and co.solo_waves == 2
+    for out, v in zip(outs, vals):
+        np.testing.assert_allclose(out.to_dense(), v @ v, atol=1e-4)

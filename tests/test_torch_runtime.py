@@ -377,3 +377,94 @@ def test_free_releases_store_bytes_and_calls_the_engine_hook_first(
     assert freed > 0 and D.node in seen[-1]
     assert sum(s.owned_bytes for s in sess.scheduler.store.stats) == \
         owned - freed
+
+
+class TestExport:
+    """``repro_torch.obs.export`` (the Perfetto export) against the
+    reference's ``repro.obs.export``."""
+
+    @staticmethod
+    def _assert_monotone(doc):
+        ts = [e["ts"] for e in doc["traceEvents"] if e["ph"] != "M"]
+        assert ts == sorted(ts) and all(t >= 0 for t in ts)
+
+    @pytest.mark.parametrize("pattern", ["banded", "s2"])
+    def test_sim_trace_equals_reference(self, pattern, tmp_path):
+        """The same graph and seed: the same Chrome trace, event by event,
+        and the same file on disk."""
+        docs, paths = [], []
+        for pkg in PACKAGES:
+            export = __import__(f"{pkg.__name__}.obs.export",
+                                fromlist=["x"])
+            _, rep = _measured(pkg, pattern, 4, "random")
+            docs.append(export.chrome_trace(
+                export.sim_trace_events(rep.trace)))
+            paths.append(export.write_chrome_trace(
+                tmp_path / f"{pkg.__name__}.trace.json",
+                export.sim_trace_events(rep.trace)))
+        want, got = docs
+        assert got == want
+        self._assert_monotone(got)
+        assert paths[0].read_text() == paths[1].read_text()
+        slices = [e for e in got["traceEvents"] if e["ph"] == "X"]
+        assert len(slices) == len(rep.trace.events) > 0
+
+    def test_span_events_of_a_traced_torch_session(self):
+        """Spans and simulator events of one traced torch-engine session
+        on two pid tracks, monotone, with the engine's wave spans."""
+        from repro_torch.obs import chrome_trace, sim_trace_events, \
+            span_events
+        sess = repro_torch.Session(engine=TorchEngine(device="cpu"),
+                                   trace=True, leaf_n=LEAF_N, bs=BS)
+        A = sess.from_dense(_banded(1))
+        (A @ A).to_dense()
+        sess.simulate(p=2)
+        doc = chrome_trace(span_events(sess.tracer))
+        self._assert_monotone(doc)
+        slices = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+        assert {"qt.multiply", "engine.wave", "kernel.dispatch",
+                "session.simulate"} <= slices
+        both = chrome_trace(span_events(sess.tracer),
+                            sim_trace_events(sess._last_report.trace))
+        self._assert_monotone(both)
+        assert len({e["pid"] for e in both["traceEvents"]}) == 2
+
+    def test_text_report_equals_reference(self):
+        from repro.obs import text_report as ref_text_report
+        from repro_torch.obs import text_report
+        reps = [_measured(pkg, "banded", 4, "parent-worker")[1]
+                for pkg in PACKAGES]
+        want = ref_text_report(reps[0].to_metrics(), title="sim")
+        assert text_report(reps[1].to_metrics(), title="sim") == want
+        # a plain to_dict() document renders the same
+        assert text_report(reps[1].to_metrics().to_dict(),
+                           title="sim") == want
+
+    def test_mesh_stats_events_from_log(self):
+        """The hand-built ``stats`` dict of ``tests/test_obs.py``: the
+        exporter needs no mesh engine and no device."""
+        from repro_torch.obs import chrome_trace, mesh_stats_events
+        st = {"n_dev": 2,
+              "wave_log": [{"kernel": "k", "bs": 8, "tasks": 3,
+                            "pairs": 5, "padded_pairs": 6, "c_blocks": 4,
+                            "wall_s": 0.25}] * 2,
+              "comm_log": [
+                  {"fetched_bytes_by_dev": [256, 0],
+                   "pushed_bytes_by_dev": [0, 512],
+                   "collective_bytes_by_dev": [256, 0]},
+                  {"fetched_bytes_by_dev": [0, 128],
+                   "pushed_bytes_by_dev": [64, 0],
+                   "collective_bytes_by_dev": [0, 128]},
+              ]}
+        doc = chrome_trace(mesh_stats_events(st))
+        self._assert_monotone(doc)
+        finals = {}
+        for e in doc["traceEvents"]:
+            if e["ph"] == "C" and e["name"].startswith("fetched_bytes"):
+                finals[e["tid"]] = e["args"]["bytes"]
+        assert finals == {0: 256, 1: 128}
+        slices = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+        assert len(slices) == 4     # 2 waves x 2 devices
+        assert {e["dur"] for e in slices} == {0.25 * 1e6}
+        from repro.obs import mesh_stats_events as ref_events
+        assert mesh_stats_events(st) == ref_events(st)

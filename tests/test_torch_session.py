@@ -215,9 +215,10 @@ class TestFacadeContract:
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """A whole CPU ``A @ B`` session, simulated, and the solvers load no
-    jax and no ``repro`` module; importing the runtime and the analysis
-    starts no CUDA context."""
+    """A whole CPU ``A @ B`` session, simulated, the solvers, a plan
+    server, the Perfetto export, the report and the roofline load no jax
+    and no ``repro`` module; importing the runtime, the analysis, the
+    server and the launch modules starts no CUDA context."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -225,6 +226,9 @@ def test_port_imports_neither_jax_nor_repro():
         import repro_torch.runtime as rt
         from repro_torch.core import analysis
         from repro_torch.runtime import FaultSchedule, Scheduler, kill
+        import repro_torch.serve
+        from repro_torch.launch import report, roofline
+        from repro_torch.obs import export
         assert not torch.cuda.is_initialized()
         import repro_torch
         from repro_torch.core.engine import TorchEngine
@@ -241,6 +245,19 @@ def test_port_imports_neither_jax_nor_repro():
         z, frep = inverse_factor(sess.from_dense(s, upper=True),
                                  method="localized", tol=1e-4)
         assert frep.converged
+        srv = repro_torch.serve.PlanServer(device="cpu", leaf_n=16, bs=4)
+        srv.register("A", a)
+        t = srv.submit(repro_torch.serve.Request.multiply("A", "A"))
+        srv.drain()
+        assert np.allclose(t.result, a @ a, atol=1e-4)
+        doc = export.chrome_trace(export.sim_trace_events(rep.trace))
+        assert doc["traceEvents"]
+        assert "| 1 |" in report.serve_table({"rows": [dict(
+            max_inflight=1, requests_per_s=1.0, p50_ms=1.0, p95_ms=1.0,
+            p99_ms=1.0, hit_rate=1.0, merged_waves=0, solo_waves=1,
+            requests=1)]})
+        assert roofline.Roofline(1.0, 1.0, 1.0, 1,
+                                 roofline.Hardware()).t_bound > 0
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro.")]
