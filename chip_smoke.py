@@ -22,7 +22,11 @@ through the entry points a user calls, on the card:
              case (bs 32, float32) so must the plain version on inputs
              rounded to TF32 (a tensor-core kernel without 3xTF32's
              correction terms).  Each bsmm_pairs call must reach the design
-             its blocks select (bs >= 16: mma, else fma).
+             its blocks select (bs >= 16: mma, else fma).  Then the shapes
+             the mesh executor gives them (bs 8 and 32, float32): one pool
+             that is both A and B, a tail of 4003 padding pairs (0, 0,
+             seg = cap_c), 97 unvisited slots that must come out 0, and
+             ``batched_gemm`` on the 7004 gathered pairs (no multiple of 8).
 3. main    — ``repro_torch.Session(engine="torch")`` at the paper's scale:
              banded ``A @ B`` (n = 65536), S2 overlap ``S.sym_square()``
              (32768 particles), random ``A.T @ B``, and banded again under
@@ -62,6 +66,31 @@ solvers — the electronic-structure path through ``Session(engine=
              ``eigh`` reference on the card.  Per step the wall seconds,
              launches per design, the kernel's summed CUDA-event ms and
              share, and the host seconds of the dense round trips.
+mesh    — ``repro_torch.launch.mesh_exec.MeshEngine`` on a
+             ``torch.distributed`` group (after solvers, before lm and
+             serve).  (a) One rank on an NCCL group: phase 3's banded
+             ``A @ B`` under ``kernel="gemm"`` and ``"pairs"``, checked by
+             phase 3's rule; no fetched or collective byte, every unique
+             operand block pushed once, one launch a wave (``pairs`` on
+             mma); build_s, multiply_s and the kernel's time on the wave.
+             (b) 2, 4 and 8 ranks in spawned processes on a gloo group,
+             each rank's kernel on ``cuda:0`` (the card is shared; gloo
+             stages the shipments through the host), running
+             ``benchmarks/bench_mesh_comm.py``'s mesh program (n = 128 p,
+             banded_mask(n, 12) @ banded_mask(n, 7), leaf_n 32, bs 8):
+             every rank's record must equal the committed
+             ``BENCH_mesh_comm.json`` record exactly and C be within 1e-3
+             of a @ b; at p = 4 also ``halo_spmm`` and ``demand_spmm``
+             through ``bsmm_pairs`` (v2's counted bytes below v1's) and
+             SpSUMMA's counted bytes (219,648 a rank).  (c) Weak scaling
+             on 1, 2 and 4 such ranks: banded ``A @ B`` at n = 8192 p
+             (half-bandwidth 128, leaf_n 2048, bs 32), phase 3's rule on
+             rank 0; per rank the fetched, pushed and collective bytes,
+             multiply_s and the kernel's time on its own wave (ranks time
+             in turn).  Ranks only load the libraries phase 1 built; a
+             failed rank, a timeout or a count that differs fails the
+             smoke.  No multi-GPU speed is claimed: the ranks share one
+             card.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -382,6 +411,67 @@ def check_kernels(torch, ops, ref) -> dict:
                                             else 0.0)
                 log(f"  batched_gemm bs={bs:2d} {str(dtype):14s} P={p:6d} "
                     f"max_abs_err={err:.3g}")
+    for name, err in check_mesh_shapes(torch, ops, ref, rng).items():
+        worst[name] = max(worst[name], err)
+    return worst
+
+
+def check_mesh_shapes(torch, ops, ref, rng) -> dict:
+    """The shapes the mesh executor (``launch/mesh_exec.py``) gives the
+    kernels: one pool that is both A and B, each rank's pair table padded
+    to the busiest rank's count with pairs (0, 0, seg = cap_c) (a long
+    tail of dropped pairs), output slots that no pair visits (they must
+    come out zero), and ``batched_gemm`` on the gathered pairs, whose
+    count is no multiple of the reference's batch tile of 8.  Float32 at
+    bs 8 (``fma``) and 32 (``mma``), each against the plain version (the
+    rule of :func:`check_elementwise`; with the last k-step dropped it
+    must miss)."""
+    from repro_torch.kernels import bsmm_pairs as kbp
+    worst = {"bsmm_pairs": 0.0, "batched_gemm": 0.0}
+    for bs in (8, 32):
+        pool_len, cap_c, valid, pad = 700, 613, 3001, 4003
+        pool = torch.tensor(rng.standard_normal((pool_len, bs, bs))
+                            * bs ** -0.25, dtype=torch.float32, device="cuda")
+        visited = np.sort(rng.choice(cap_c, size=cap_c - 97, replace=False))
+        seg = np.concatenate([np.sort(rng.choice(visited, valid)),
+                              np.full(pad, cap_c)]).astype(np.int32)
+        sa = np.concatenate([rng.integers(0, pool_len, valid),
+                             np.zeros(pad, np.int64)]).astype(np.int32)
+        sb = np.concatenate([rng.integers(0, pool_len, valid),
+                             np.zeros(pad, np.int64)]).astype(np.int32)
+        sa, sb, seg = (torch.from_numpy(x).cuda() for x in (sa, sb, seg))
+        design = kbp.design_for(pool)
+        before = variant_counts()["bsmm_pairs"][design]
+        got = ops.bsmm_pairs(pool, pool, sa, sb, seg, cap_c=cap_c)
+        torch.cuda.synchronize()
+        if variant_counts()["bsmm_pairs"][design] != before + 1:
+            raise AssertionError(f"bsmm_pairs bs={bs} (mesh shapes) did not "
+                                 f"launch the {design} design")
+        want32 = ref.bsmm_pairs_ref(pool, pool, sa, sb, seg, cap_c)
+        what = (f"bsmm_pairs bs={bs} mesh pool (A is B, {pad} padding "
+                f"pairs, 97 unvisited slots)")
+        err = check_elementwise(torch, what, got, want32, torch.float32)
+        must_fail(torch, what + " with the last k-step dropped",
+                  ref.bsmm_pairs_ref(pool[:, :, :-1], pool[:, :-1], sa, sb,
+                                     seg, cap_c), want32)
+        unvisited = np.setdiff1d(np.arange(cap_c), visited)
+        if bool((got[torch.from_numpy(unvisited).cuda()] != 0).any()):
+            raise AssertionError(f"{what}: unvisited slots not 0")
+        worst["bsmm_pairs"] = max(worst["bsmm_pairs"], err)
+        log(f"  bsmm_pairs   bs={bs:2d} mesh pool P={valid + pad} "
+            f"(padding {pad}) cap_c={cap_c} unvisited=97 {design} "
+            f"max_abs_err={err:.3g}")
+        ga, gb = pool[sa.long()], pool[sb.long()]      # 7004 = 8 * 875 + 4
+        got = ops.batched_gemm(ga, gb)
+        torch.cuda.synchronize()
+        want32 = ref.batched_gemm_ref(ga, gb)
+        what = f"batched_gemm bs={bs} mesh gather P={ga.shape[0]}"
+        err = check_elementwise(torch, what, got, want32, torch.float32)
+        must_fail(torch, what + " with the last k-step dropped",
+                  ref.batched_gemm_ref(ga[:, :, :-1], gb[:, :-1]), want32)
+        worst["batched_gemm"] = max(worst["batched_gemm"], err)
+        log(f"  batched_gemm bs={bs:2d} mesh gather P={ga.shape[0]} "
+            f"(P % 8 = {ga.shape[0] % 8}) max_abs_err={err:.3g}")
     return worst
 
 
@@ -645,9 +735,27 @@ def run_case(torch, ops, ref, launches, name, build, op, engine_kw,
     return summary
 
 
+def banded_operands(n: int, d: int):
+    """Banded A and B of half-bandwidth d at n (seeded hashed values):
+    ``build(sess)`` makes them in a session, ``oracle()`` as scipy CSR."""
+    import scipy.sparse as sp
+    from repro_torch.core.patterns import banded_pairs
+    rows, cols = banded_pairs(n, d)
+    va, vb = hashed_values(1), hashed_values(2)
+
+    def build(sess):
+        return (sess.from_pattern(rows, cols, n, value_fn=va),
+                sess.from_pattern(rows, cols, n, value_fn=vb))
+
+    def oracle():
+        return tuple(sp.csr_matrix((v(rows, cols), (rows, cols)),
+                                   shape=(n, n)) for v in (va, vb))
+    return build, oracle
+
+
 def main_path(torch, ops, ref, launches, keep) -> dict:
     import scipy.sparse as sp
-    from repro_torch.core.patterns import (banded_pairs, divide_space_order,
+    from repro_torch.core.patterns import (divide_space_order,
                                            overlap_pairs, particle_cloud,
                                            random_mask, values_for_mask)
 
@@ -656,18 +764,7 @@ def main_path(torch, ops, ref, launches, keep) -> dict:
 
     out = {}
     # banded: bandwidth 257 at n = 65536, ~1.7e5 block pairs in one wave
-    n_band, d = SIZES["banded"]
-    rows, cols = banded_pairs(n_band, d)
-    va, vb = hashed_values(1), hashed_values(2)
-
-    def build_banded(sess):
-        return (sess.from_pattern(rows, cols, n_band, value_fn=va),
-                sess.from_pattern(rows, cols, n_band, value_fn=vb))
-
-    def banded_oracle():
-        return (coo(rows, cols, va(rows, cols), n_band),
-                coo(rows, cols, vb(rows, cols), n_band))
-
+    build_banded, banded_oracle = banded_operands(*SIZES["banded"])
     out["banded"] = run_case(torch, ops, ref, launches, "banded A@B",
                              build_banded, lambda a, b: a @ b,
                              {"kernel": "pairs"}, banded_oracle,
@@ -1444,6 +1541,317 @@ def serve_phase(torch, ops, launches) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase mesh: MeshEngine on a torch.distributed group
+# ---------------------------------------------------------------------------
+
+#: rank counts of part (b), the program of benchmarks/bench_mesh_comm.py
+MESH_PS = (2, 4, 8)
+#: rank counts of part (c) and its banded n per rank (weak scaling)
+WEAK_PS, WEAK_N = (1, 2, 4), 8192
+#: seconds a group of ranks may take before the smoke fails
+RANK_TIMEOUT = 420.0
+
+
+def phase_launches() -> dict:
+    from repro_torch.kernels import _build
+    return {"launches": dict(_build.LAUNCHES), "designs": variant_counts()}
+
+
+def prebuilt_only() -> None:
+    """A rank loads the kernels phase 1 built and never runs nvcc."""
+    from repro_torch.kernels import _build
+    missing = [k for k in _build.KERNELS if not _build._lib_path(k).exists()]
+    if missing:
+        raise RuntimeError(f"rank finds no built library for {missing}: "
+                           f"phase 1 builds every kernel first")
+
+
+def mesh_world_of_one(torch, ops, ref) -> dict:
+    """(a) ``Session(engine=MeshEngine(...))`` on an NCCL group of one
+    rank, at phase 3's banded size, under each kernel: the result by phase
+    3's rule, no fetched or collective byte, each unique operand block
+    pushed once, the kernel launched on the card."""
+    import tempfile
+    import scipy.sparse as sp
+    import torch.distributed as dist
+    from repro_torch import Session
+    from repro_torch.launch.mesh_exec import MeshEngine
+
+    build, oracle = banded_operands(*SIZES["banded"])
+    out = {}
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store",
+                                rank=0, world_size=1)
+        try:
+            for kernel in ("gemm", "pairs"):
+                name = "batched_gemm" if kernel == "gemm" else "bsmm_pairs"
+                t0 = time.perf_counter()
+                sess = Session(engine=MeshEngine(kernel=kernel,
+                                                 group=dist.group.WORLD),
+                               leaf_n=LEAF_N, bs=BS)
+                mats = build(sess)
+                t_build = time.perf_counter() - t0
+                reset_counts()
+                t1 = time.perf_counter()
+                with Capture(ops) as cap:
+                    c = mats[0] @ mats[1]
+                    st = sess.engine_stats()
+                t_mult = time.perf_counter() - t1
+                counts = phase_launches()
+                if counts["launches"][name] != st["waves"] or not st["waves"]:
+                    raise AssertionError(f"mesh world of one ({kernel}): "
+                                         f"{counts} for {st['waves']} waves")
+                if kernel == "pairs" and counts["designs"]["bsmm_pairs"][
+                        "mma"] != st["waves"]:
+                    raise AssertionError(f"mesh pairs not on mma: {counts}")
+                unique = sum(w["unique_blocks"] for w in st["wave_log"])
+                got = [st[k] for k in ("n_dev", "fetched_bytes",
+                                       "collective_bytes", "pushed_bytes")]
+                if got != [1, [0], [0], [unique * 4 * BS * BS]]:
+                    raise AssertionError(
+                        f"mesh world of one: n_dev, fetched, collective and "
+                        f"pushed bytes {got}, {unique} unique blocks")
+                res = check_result(sp, f"mesh {kernel}", stored_blocks(c),
+                                   *oracle(), n=c.n, bs=BS, upper=c.upper,
+                                   seed=7)
+                _, args, kw = cap.calls[name]
+                tm = time_kernel(torch, ref, name, args, kw)
+                out[kernel] = {
+                    "build_s": t_build, "multiply_s": t_mult,
+                    "waves": st["waves"], "pairs": st["batched_pairs"],
+                    "unique_blocks": unique, "c_blocks": st["c_blocks"],
+                    "pushed_bytes": st["pushed_bytes"][0],
+                    "kernel_wall_s": st["kernel_wall_s"], **counts, **res,
+                    "timing": {name: tm}}
+                log(f"  (a) world of one, NCCL, kernel={kernel}: "
+                    f"build_s={t_build:.3f} multiply_s={t_mult:.3f} "
+                    f"launches={counts['launches']} designs="
+                    f"{counts['designs']['bsmm_pairs']} {name} "
+                    f"ms={tm['ms']:.4f} bound_ms={tm['bound_ms']:.4f} "
+                    f"plain_ms={tm['plain_ms']:.4f} pushed_bytes="
+                    f"{st['pushed_bytes'][0]} rel_frob_err="
+                    f"{res['rel_frob_err']:.3g}")
+                del sess, mats, c
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def mesh_bench_rank(rank: int, p: int) -> dict:
+    """(b) one rank: benchmarks/bench_mesh_comm.py::child's mesh program
+    with each rank's kernel on ``cuda:0`` (gloo stages the shipments
+    through the host); at p = 4 also the halo (v1) and demand (v2)
+    multiplies through ``bsmm_pairs`` and SpSUMMA's counted bytes."""
+    import torch
+    from repro_torch import Session
+    from repro_torch.core import distributed as cdist
+    from repro_torch.core import spsumma
+    from repro_torch.core.patterns import (banded_mask,
+                                           block_mask_from_element_mask,
+                                           values_for_mask)
+    from repro_torch.launch.mesh import make_spmm_mesh, make_summa_mesh
+    from repro_torch.launch.mesh_exec import MeshEngine
+
+    prebuilt_only()
+    n, bs = 128 * p, 8
+    a = values_for_mask(banded_mask(n, 12), seed=1)
+    b = values_for_mask(banded_mask(n, 7), seed=2)
+    sess = Session(engine=MeshEngine(device="cuda:0"), leaf_n=32, bs=bs)
+    A, B = sess.from_dense(a), sess.from_dense(b)
+    reset_counts()
+    t0 = time.perf_counter()
+    C = A @ B
+    st = sess.engine_stats()
+    out = {"multiply_s": time.perf_counter() - t0, **phase_launches()}
+    if out["launches"]["batched_gemm"] != st["waves"]:
+        raise AssertionError(f"rank {rank}: {out['launches']} for "
+                             f"{st['waves']} waves")
+    np.testing.assert_allclose(C.to_dense(), a @ b, atol=1e-3)
+    out["record"] = {
+        "scheme": "mesh", "p": p, "n": n,
+        "max_fetched_bytes_per_dev": max(st["fetched_bytes"]),
+        "sum_fetched_blocks": sum(st["fetched_blocks"]),
+        "max_pushed_bytes_per_dev": max(st["pushed_bytes"]),
+        "max_collective_bytes_per_dev": max(st["collective_bytes"]),
+        "waves": st["waves"]}
+    if p != 4:
+        return out
+
+    def shards(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(x[rank])).cuda()
+                for x in arrays]
+
+    def dense_c(cb, cr, cc, grid):
+        return cdist.gather_dense(*[cdist.all_gather(None, x).cpu().numpy()
+                                    for x in (cb, cr, cc)], grid, bs)
+
+    a32, b32 = a.astype(np.float32), b.astype(np.float32)
+    ma = block_mask_from_element_mask(a32 != 0, bs)
+    mb = block_mask_from_element_mask(b32 != 0, bs)
+    base = cdist.plan_distribution(ma, mb, bs, p)
+    dplan = cdist.plan_demand(ma, mb, bs, p)
+    args = shards(*cdist.distribute_morton(a32, bs, base),
+                  *cdist.distribute_morton(b32, bs, base))
+    mesh = make_spmm_mesh()
+    reset_counts()
+    for key, fn, plan in (("halo_v1", cdist.halo_spmm, base),
+                          ("demand_v2", cdist.demand_spmm, dplan)):
+        comm = {}
+        cb, cr, cc, _ = fn(mesh, "dev", plan, *args, use_pair_kernel=True,
+                           comm=comm)
+        np.testing.assert_allclose(dense_c(cb, cr, cc, plan.grid), a32 @ b32,
+                                   atol=1e-3)
+        out[key + "_bytes"] = comm["collective_bytes"]
+    halo_launches = phase_launches()
+    if halo_launches["designs"]["bsmm_pairs"]["fma"] != 2:
+        raise AssertionError(f"halo and demand on rank {rank}: "
+                             f"{halo_launches}")
+    for k in ("bsmm_pairs", "batched_gemm"):
+        out["launches"][k] += halo_launches["launches"][k]
+    sp = spsumma.plan_summa(ma, ma, bs, spsumma.summa_pgrid(p))
+    sh = spsumma.distribute_panels(a32, bs, sp)
+    comm = {}
+    cb, cr, cc, _ = spsumma.summa_spmm(make_summa_mesh(), ("pr", "pc"), sp,
+                                       *shards(*sh, *sh), comm=comm)
+    np.testing.assert_allclose(dense_c(cb, cr, cc, sp.grid), a32 @ a32,
+                               atol=1e-3)
+    out["summa_bytes"] = comm["collective_bytes"]
+    return out
+
+
+def mesh_weak_rank(rank: int, p: int) -> dict:
+    """(c) one rank of the weak-scaling run: banded A @ B at n = WEAK_N p
+    (half-bandwidth 128, leaf_n 2048, bs 32) through ``MeshEngine()`` with
+    the kernel on ``cuda:0``; then each rank in turn times its kernel on
+    its own wave (the ranks share the card)."""
+    import scipy.sparse as sp
+    import torch
+    import torch.distributed as dist
+    from repro_torch import Session
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.mesh_exec import MeshEngine
+
+    prebuilt_only()
+    n = WEAK_N * p
+    build, oracle = banded_operands(n, SIZES["banded"][1])
+    t0 = time.perf_counter()
+    sess = Session(engine=MeshEngine(device="cuda:0"), leaf_n=LEAF_N, bs=BS)
+    A, B = build(sess)
+    t_build = time.perf_counter() - t0
+    reset_counts()
+    dist.barrier()
+    t1 = time.perf_counter()
+    with Capture(ops) as cap:
+        C = A @ B
+        st = sess.engine_stats()
+    out = {"n": n, "build_s": t_build,
+           "multiply_s": time.perf_counter() - t1, **phase_launches(),
+           **{k: st[k] for k in ("fetched_bytes", "pushed_bytes",
+                                 "collective_bytes", "waves",
+                                 "batched_pairs", "padded_pairs",
+                                 "kernel_wall_s")}}
+    if out["launches"]["batched_gemm"] != st["waves"] or not st["waves"]:
+        raise AssertionError(f"rank {rank}: {out['launches']}")
+    if rank == 0:
+        out.update(check_result(sp, f"mesh weak p={p}", stored_blocks(C),
+                                *oracle(), n=n, bs=BS, upper=False, seed=7))
+    _, args, kw = cap.calls["batched_gemm"]
+    for r in range(p):
+        dist.barrier()
+        if r == rank:
+            out["timing"] = time_kernel(torch, ref, "batched_gemm", args, kw)
+    dist.barrier()
+    return out
+
+
+def mesh_phase(torch, ops, ref) -> dict:
+    """Phase mesh: (a) world of one on NCCL, (b) the bench's program on 2,
+    4 and 8 gloo ranks (exact counters), (c) weak scaling on 1, 2 and 4
+    gloo ranks; launches summed over every rank."""
+    from repro_torch.launch.mesh import launch_ranks
+    out = {"world1": mesh_world_of_one(torch, ops, ref)}
+    total = {k: sum(r["launches"][k] for r in out["world1"].values())
+             for k in ("bsmm_pairs", "batched_gemm")}
+    bench = json.loads((ROOT / "BENCH_mesh_comm.json").read_text())
+    out["ranks"] = {}
+    for p in MESH_PS:
+        t0 = time.perf_counter()
+        res = launch_ranks(mesh_bench_rank, p, timeout=RANK_TIMEOUT)
+        (want,) = [r for r in bench["records"]
+                   if r["scheme"] == "mesh" and r["p"] == p]
+        for r in res:
+            if r["record"] != want:
+                raise AssertionError(f"mesh p={p}: {r['record']} != the "
+                                     f"committed record {want}")
+        for k in total:
+            total[k] += sum(r["launches"][k] for r in res)
+        row = {"record": res[0]["record"], "wall_s": time.perf_counter() - t0,
+               "multiply_s": [r["multiply_s"] for r in res],
+               "launches": [r["launches"] for r in res]}
+        if p == 4:
+            v1 = {r["halo_v1_bytes"] for r in res}
+            v2 = {r["demand_v2_bytes"] for r in res}
+            summa = [r["summa_bytes"] for r in res]
+            if not max(v2) < min(v1):
+                raise AssertionError(f"demand v2 bytes {v2} not below halo "
+                                     f"v1 {v1}")
+            if summa != [219648] * p:
+                raise AssertionError(f"SpSUMMA counted bytes {summa} != "
+                                     f"219648 per rank")
+            row.update(halo_v1_bytes=sorted(v1), demand_v2_bytes=sorted(v2),
+                       summa_bytes=summa)
+        out["ranks"][p] = row
+        log(f"  (b) p={p} gloo ranks on cuda:0: record {row['record']} == "
+            f"the committed one; multiply_s {row['multiply_s']}; "
+            + (f"halo v1 bytes {row['halo_v1_bytes']}, demand v2 "
+               f"{row['demand_v2_bytes']}, SpSUMMA {summa[0]} per rank; "
+               if p == 4 else "") + f"wall_s={row['wall_s']:.3f}")
+    out["weak"] = {}
+    for p in WEAK_PS:
+        t0 = time.perf_counter()
+        res = launch_ranks(mesh_weak_rank, p, timeout=RANK_TIMEOUT)
+        for k in total:
+            total[k] += sum(r["launches"][k] for r in res)
+        st = res[0]
+        row = {"n": st["n"], "wall_s": time.perf_counter() - t0,
+               "max_fetched_bytes": max(st["fetched_bytes"]),
+               "max_pushed_bytes": max(st["pushed_bytes"]),
+               "max_collective_bytes": max(st["collective_bytes"]),
+               "fetched_bytes": st["fetched_bytes"],
+               "pushed_bytes": st["pushed_bytes"],
+               "collective_bytes": st["collective_bytes"],
+               "build_s": [r["build_s"] for r in res],
+               "multiply_s": [r["multiply_s"] for r in res],
+               "kernel_ms": [r["timing"]["ms"] for r in res],
+               "bound_ms": [r["timing"]["bound_ms"] for r in res],
+               "pairs": st["batched_pairs"], "padded_pairs": st["padded_pairs"],
+               "rel_frob_err": st["rel_frob_err"],
+               "max_abs_err": max(r["timing"]["max_abs_err"] for r in res)}
+        out["weak"][p] = row
+        log(f"  (c) weak p={p} n={row['n']}: max fetched/pushed/collective "
+            f"bytes per rank {row['max_fetched_bytes']} / "
+            f"{row['max_pushed_bytes']} / {row['max_collective_bytes']}; "
+            f"multiply_s {[round(x, 3) for x in row['multiply_s']]}; "
+            f"batched_gemm ms per rank "
+            f"{[round(x, 4) for x in row['kernel_ms']]} (bound "
+            f"{[round(x, 4) for x in row['bound_ms']]}); build_s "
+            f"{[round(x, 2) for x in row['build_s']]}; rel_frob_err "
+            f"{row['rel_frob_err']:.3g}; wall_s={row['wall_s']:.3f}")
+    out["launches"] = {k: total.get(k, 0) for k in ("bsmm_pairs",
+                                                    "batched_gemm",
+                                                    "block_attention")}
+    out["max_abs_err"] = {
+        "bsmm_pairs": out["world1"]["pairs"]["timing"]["bsmm_pairs"][
+            "max_abs_err"],
+        "batched_gemm": max([out["world1"]["gemm"]["timing"]["batched_gemm"][
+            "max_abs_err"]] + [r["max_abs_err"]
+                               for r in out["weak"].values()])}
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase lm: the LM substrate at full width
 # ---------------------------------------------------------------------------
 
@@ -1879,6 +2287,16 @@ def main() -> int:
                                if isinstance(st, dict) and "launches" in st)
     log(f"  solvers_s={solvers['solvers_s']:.3f} launches={total}")
 
+    log("phase mesh: MeshEngine on a torch.distributed group")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(torch, ops, ref)
+    mesh["mesh_s"] = time.perf_counter() - t0
+    for k in ("bsmm_pairs", "batched_gemm"):
+        total[k] += mesh["launches"][k]
+        worst[k] = max(worst[k], mesh["max_abs_err"][k])
+    log(f"  mesh_s={mesh['mesh_s']:.3f} launches={total}")
+
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -1907,7 +2325,8 @@ def main() -> int:
         f"{build_share / elapsed:.3f}")
     log("record: " + json.dumps({"card": card, "phases": phases,
                                  "bs8_wave": bs8, "sim": sim,
-                                 "solvers": solvers, "serve": serve,
+                                 "solvers": solvers, "mesh": mesh,
+                                 "serve": serve,
                                  "smoke_s": elapsed}))
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}

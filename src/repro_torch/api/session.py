@@ -64,7 +64,7 @@ PLACEMENT_ALIASES = {p: p for p in PLACEMENTS}
 PLACEMENT_ALIASES.update({"parent": "parent-worker", "rr": "round-robin"})
 
 #: engine spec strings resolvable by :func:`repro_torch.core.engine.make_engine`
-ENGINE_NAMES = ("numpy", "torch")
+ENGINE_NAMES = ("numpy", "torch", "mesh")
 
 
 def _normalize_placement(placement: Optional[str]) -> Optional[str]:
@@ -98,7 +98,10 @@ class Session:
         through the CUDA kernels; needs a CUDA device and raises at the
         first leaf task without one — pass ``TorchEngine(device="cpu")``
         to run the kernels' plain PyTorch versions instead), ``"numpy"``
-        (the host reference, immediate; only when asked for) or a
+        (the host reference, immediate; only when asked for), ``"mesh"``
+        (waves sharded over the ranks of a torch.distributed group,
+        :class:`~repro_torch.launch.mesh_exec.MeshEngine`; a world of one
+        without a process group) or a
         :class:`~repro_torch.core.engine.LeafEngine` instance.  One stateful
         engine instance serves one session/graph; rebinding raises
         :class:`~repro_torch.core.engine.EngineRebindError`.  Unknown specs
@@ -459,7 +462,7 @@ class Session:
                 targets.difference_update(
                     _subtree_nids(self.graph, tnid))
         # engine hook *before* the scheduler early-return: an engine that
-        # keeps device-resident state for these leaves (the reference's
+        # keeps device-resident state for these leaves (MeshEngine, the
         # mesh executor) must drop it even when nothing was ever
         # simulated.  TorchEngine copies every wave's result back to the
         # host and keeps no device buffer, so its hook is the no-op base

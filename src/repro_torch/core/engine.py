@@ -149,12 +149,16 @@ class LeafEngine:
 
 
 def make_engine(spec: Any) -> LeafEngine:
-    """Resolve an engine spec: None/'torch' (the card), 'numpy', or an
-    instance."""
+    """Resolve an engine spec: None/'torch' (the card), 'numpy', 'mesh'
+    (the rank-sharded executor on the card), or an instance."""
     if spec is None or spec == "torch":
         return TorchEngine()
     if spec == "numpy":
         return NumpyEngine()
+    if spec == "mesh":
+        # lazy import: launch.mesh_exec builds on this module
+        from repro_torch.launch.mesh_exec import MeshEngine
+        return MeshEngine()
     if isinstance(spec, LeafEngine):
         return spec
     raise ValueError(f"unknown leaf engine spec: {spec!r}")

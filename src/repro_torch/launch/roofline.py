@@ -10,15 +10,23 @@ limit), which ``chip_smoke.py`` reads for every kernel's bound.  A card
 set below 700 W runs slower under load, so a share of these peaks is
 stated beside the card's power limit.
 
-The reference's ``collective_bytes`` (a parser of XLA HLO text) and
-``from_compiled`` (terms from a JAX compiled artifact) have no counterpart
-here: the port's collective bytes will be the mesh executor's counted
-send/recv bytes (ROADMAP.md queue 1 item 6) and its FLOPs and bytes the
-port's dry run (item 8).
+The reference's ``collective_bytes`` parses XLA HLO text, and has no
+counterpart here; :func:`mesh_collective_bytes` reads what the port
+counted instead: the max
+per-device ``collective_bytes`` of a
+:meth:`~repro_torch.launch.mesh_exec.MeshEngine.stats` dict (the bytes its
+ring shifts moved into each rank), or the bytes the halo, demand and
+SpSUMMA multiplies of ``core.distributed`` / ``core.spsumma`` counted
+(the HLO convention: result bytes of each collective, own shard included
+for an all-gather).  :func:`from_mesh_stats` puts that term over
+``NVLINK_BPS``.  The reference's ``from_compiled`` (terms from a JAX
+compiled artifact) waits for the port's dry run (ROADMAP.md queue 1 item
+8).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Union
 
 #: HBM3 bytes/s
 HBM_BPS = 3.35e12
@@ -107,3 +115,28 @@ class Roofline:
             "useful_fraction": self.useful_fraction,
             "mfu_bound": self.mfu_bound,
         }
+
+
+def mesh_collective_bytes(counted: Union[dict, list, int]) -> int:
+    """Per-device collective bytes of a run the port counted.
+
+    ``counted`` is a mesh engine's ``stats()`` dict or a multiply's
+    ``comm`` dict (its ``"collective_bytes"``), or the per-rank counts
+    themselves; the term is the busiest device's, since SPMD waves end
+    together."""
+    if isinstance(counted, dict):
+        counted = counted["collective_bytes"]
+    if isinstance(counted, (list, tuple)):
+        return int(max(counted, default=0))
+    return int(counted)
+
+
+def from_mesh_stats(stats: dict, *, flops: float = 0.0,
+                    hbm_bytes: float = 0.0) -> Roofline:
+    """Roofline of a mesh run on H100s: the collective term from its
+    counted bytes (:func:`mesh_collective_bytes`) over ``NVLINK_BPS``;
+    ``flops`` and ``hbm_bytes`` per device as the caller counted them."""
+    return Roofline(flops=flops, hbm_bytes=hbm_bytes,
+                    coll_bytes=mesh_collective_bytes(stats),
+                    n_chips=max(1, int(stats.get("n_dev") or 1)),
+                    hw=Hardware())

@@ -17,8 +17,8 @@ rows (``"ph": "M"``) naming processes/threads.  Three sources export:
 * :func:`mesh_stats_events` — a mesh engine :meth:`stats` dict:
   devices as threads, waves as slices laid out on the measured
   cumulative wall clock, with per-device counter tracks for the
-  measured fetched/pushed/collective bytes.  It reads the dict alone;
-  the port's mesh engine that produces one is ROADMAP.md queue 1 item 6.
+  measured fetched/pushed/collective bytes.  It reads the dict alone,
+  as :meth:`repro_torch.launch.mesh_exec.MeshEngine.stats` returns it.
 
 All assemblers sort events by timestamp (tests assert monotonicity) and
 :func:`write_chrome_trace` writes the loadable file.

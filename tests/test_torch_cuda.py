@@ -606,3 +606,67 @@ def test_engines_on_the_card_and_the_cpu_never_share_a_wave(cuda_device):
     assert co.merged_waves == 0 and co.solo_waves == 2
     for out, v in zip(outs, vals):
         np.testing.assert_allclose(out.to_dense(), v @ v, atol=1e-4)
+
+
+@pytest.mark.parametrize("kernel,bs", [("gemm", 8), ("gemm", 32),
+                                       ("pairs", 8), ("pairs", 32)])
+def test_mesh_engine_world_of_one_on_the_card(cuda_device, kernel, bs):
+    """``MeshEngine()`` alone on the card (no process group): the same
+    leaves as ``TorchEngine`` within float32, one launch of its kernel per
+    wave on the design the block size selects, no bytes on the wire."""
+    from repro_torch import Session
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import bsmm_pairs as kbp
+    from repro_torch.launch.mesh_exec import MeshEngine
+    n = 512
+    idx = np.arange(n)
+    a = np.where(np.abs(idx[:, None] - idx[None, :]) <= 20,
+                 np.random.default_rng(0).standard_normal((n, n)), 0.0)
+    out = []
+    for eng in (MeshEngine(kernel=kernel), TorchEngine(kernel=kernel)):
+        sess = Session(engine=eng, leaf_n=128, bs=bs)
+        _build.reset_launches()
+        c = (sess.from_dense(a) @ sess.from_dense(a).T).to_dense()
+        out.append((c, sess.engine_stats(), dict(ops.LAUNCHES),
+                    {k: dict(v) for k, v in ops.VARIANT_LAUNCHES.items()}))
+    (c, st, launches, designs), (want, tst, _, _) = out
+    np.testing.assert_allclose(c, want, atol=1e-4)
+    np.testing.assert_allclose(c, a @ a.T, atol=1e-3)
+    waves = st["waves"]
+    assert waves == tst["waves"] > 0
+    name = "bsmm_pairs" if kernel == "pairs" else "batched_gemm"
+    assert launches == {**dict.fromkeys(launches, 0), name: waves}
+    if kernel == "pairs":
+        design = kbp.design_for(torch.empty(1, bs, bs))
+        assert designs["bsmm_pairs"][design] == waves
+    assert st["collective_bytes"] == [0] and st["fetched_bytes"] == [0]
+    assert st["pushed_bytes"] == [sum(w["unique_blocks"]
+                                      for w in st["wave_log"]) * 4 * bs * bs]
+
+
+@pytest.mark.parametrize("use_pair_kernel", [False, True])
+def test_bsmm_on_the_card_matches_the_cpu(cuda_device, use_pair_kernel):
+    """The capacity-bounded ``bsmm`` through the kernels on the card
+    against its plain versions on the CPU, same packed operands."""
+    from repro_torch.core import blocksparse as bsp
+    from repro_torch.core.bsmm import bsmm
+    rng = np.random.default_rng(4)
+    n, bs = 512, 32
+    idx = np.arange(n)
+    a = np.where(np.abs(idx[:, None] - idx[None, :]) <= 70,
+                 rng.standard_normal((n, n)), 0.0).astype(np.float32)
+    ma = a.reshape(n // bs, bs, n // bs, bs).any(axis=(1, 3))
+    caps, cap_c = bsp.plan_caps(ma, ma), bsp.plan_c_cap(ma, ma)
+    res = []
+    for dev in ("cuda", "cpu"):
+        m = bsp.from_dense(torch.from_numpy(a).to(dev), bs, int(ma.sum()))
+        name = "bsmm_pairs" if use_pair_kernel else "batched_gemm"
+        before = ops.LAUNCHES[name]
+        c, info = bsmm(m, m, pair_caps=caps, cap_c=cap_c,
+                       use_pair_kernel=use_pair_kernel)
+        assert ops.LAUNCHES[name] == before + (dev == "cuda")
+        res.append((bsp.to_dense(c).cpu(), int(info["n_pairs"])))
+    (got, n_card), (want, n_cpu) = res
+    assert n_card == n_cpu
+    assert _within(got, want)
+    np.testing.assert_allclose(got.numpy(), a @ a, atol=1e-3)

@@ -315,10 +315,22 @@ class TestEngineContract:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             t_engine.make_engine("torch")
 
-    @pytest.mark.parametrize("spec", ["pallas", "mesh", "cuda"])
+    @pytest.mark.parametrize("spec", ["pallas", "nccl", "cuda"])
     def test_reference_engine_names_rejected(self, spec):
         with pytest.raises(ValueError, match="unknown leaf engine"):
             t_engine.make_engine(spec)
+
+    def test_make_engine_mesh(self, monkeypatch):
+        """``"mesh"`` resolves to the rank-sharded executor on the card:
+        a MeshEngine, which raises without CUDA like every entry point."""
+        from repro_torch.launch.mesh_exec import MeshEngine
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        eng = t_engine.make_engine("mesh")
+        assert type(eng) is MeshEngine and eng.kernel == "gemm"
+        assert eng.device.type == "cuda"
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            t_engine.make_engine("mesh")
 
     def test_bad_kernel_and_device(self):
         with pytest.raises(ValueError, match="kernel"):

@@ -166,10 +166,23 @@ def test_leaves_match_numpy_engine_n256():
 
 
 class TestFacadeContract:
-    @pytest.mark.parametrize("spec", ["pallas", "mesh", "cuda", 42, None])
+    @pytest.mark.parametrize("spec", ["pallas", "nccl", "cuda", 42, None])
     def test_reference_engine_names_rejected(self, spec):
         with pytest.raises(ValueError, match="unknown leaf engine"):
             repro_torch.Session(engine=spec)
+
+    def test_engine_mesh_is_a_mesh_engine(self, monkeypatch):
+        """``Session(engine="mesh")`` builds a MeshEngine at its first leaf
+        task (on the card: without CUDA it raises, no fallback)."""
+        from repro_torch.launch.mesh_exec import MeshEngine
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        sess = repro_torch.Session(engine="mesh", leaf_n=16, bs=4)
+        assert type(sess.graph.engine) is MeshEngine
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        sess = repro_torch.Session(engine="mesh", leaf_n=16, bs=4)
+        a = sess.from_dense(np.eye(32))
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            a @ a
 
     def test_engine_torch_needs_cuda(self, monkeypatch):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -216,9 +229,11 @@ class TestFacadeContract:
 
 def test_port_imports_neither_jax_nor_repro():
     """A whole CPU ``A @ B`` session, simulated, the solvers, a plan
-    server, the Perfetto export, the report and the roofline load no jax
-    and no ``repro`` module; importing the runtime, the analysis, the
-    server and the launch modules starts no CUDA context."""
+    server, the Perfetto export, the report, the roofline and the mesh
+    (a world of one: ``MeshEngine``, the halo, demand and SpSUMMA
+    multiplies, ``bsmm``) load no jax and no ``repro`` module; importing
+    the runtime, the analysis, the server, the launch modules and the
+    mesh's modules starts no CUDA context and no process group."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -229,7 +244,11 @@ def test_port_imports_neither_jax_nor_repro():
         import repro_torch.serve
         from repro_torch.launch import report, roofline
         from repro_torch.obs import export
+        from repro_torch.core import (blocksparse, bsmm, distributed,
+                                      morton, spsumma)
+        from repro_torch.launch import mesh, mesh_exec
         assert not torch.cuda.is_initialized()
+        assert not torch.distributed.is_initialized()
         import repro_torch
         from repro_torch.core.engine import TorchEngine
         from repro_torch.solvers import (TauPolicy, inverse_factor,
@@ -258,6 +277,32 @@ def test_port_imports_neither_jax_nor_repro():
             requests=1)]})
         assert roofline.Roofline(1.0, 1.0, 1.0, 1,
                                  roofline.Hardware()).t_bound > 0
+        msess = repro_torch.Session(
+            engine=mesh_exec.MeshEngine(device="cpu"), leaf_n=16, bs=4)
+        c = (msess.from_dense(a) @ msess.from_dense(a)).to_dense()
+        assert np.allclose(c, a @ a, atol=1e-4)
+        st = msess.engine_stats()
+        assert st["n_dev"] == 1 and st["collective_bytes"] == [0]
+        ma = a.reshape(16, 4, 16, 4).any(axis=(1, 3))
+        plan = distributed.plan_demand(ma, ma, 4, 1)
+        shard = distributed.distribute_morton(a, 4, plan)
+        t = [torch.from_numpy(x) for x in shard + shard]
+        t = [x[0] for x in t]
+        cb, cr, cc, _ = distributed.demand_spmm(mesh.make_spmm_mesh(),
+                                                "dev", plan, *t)
+        got = distributed.gather_dense(cb[None].numpy(), cr[None].numpy(),
+                                       cc[None].numpy(), 16, 4)
+        assert np.allclose(got, a @ a, atol=1e-4)
+        sp = spsumma.plan_summa(ma, ma, 4, 1)
+        t = [torch.from_numpy(x[0]) for x in
+             spsumma.distribute_panels(a, 4, sp) * 2]
+        cb, cr, cc, _ = spsumma.summa_spmm(mesh.make_summa_mesh(),
+                                           ("pr", "pc"), sp, *t)
+        got = distributed.gather_dense(cb[None].numpy(), cr[None].numpy(),
+                                       cc[None].numpy(), 16, 4)
+        assert np.allclose(got, a @ a, atol=1e-4)
+        assert not torch.cuda.is_initialized()
+        assert not torch.distributed.is_initialized()
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro.")]

@@ -1,0 +1,375 @@
+"""Multi-rank scenarios of the port, run on gloo CPU ranks in a subprocess.
+
+The port's counterpart of tests/dist_scenarios.py: there every scenario
+runs in one process over forced host devices; here
+
+    python tests/torch_dist_scenarios.py <p> <scenario> [<scenario> ...]
+
+starts p ranks (``repro_torch.launch.mesh.launch_ranks``, spawned
+processes on one gloo group), each rank runs the named scenarios in turn
+and asserts internally, and the script prints one ``RESULT <json>`` line
+(rank 0's results by scenario, and every rank's for ``*_by_rank`` keys)
+and ``OK``.  ``python tests/torch_dist_scenarios.py ref <scenario>``
+runs a scenario's reference program on the reference's ``MeshEngine``
+(one process; set ``XLA_FLAGS=--xla_force_host_platform_device_count=N``)
+and prints its ``RESULT``.  tests/test_torch_mesh.py and
+tests/test_torch_distributed.py drive both.
+"""
+import json
+import pathlib
+import sys
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _setup(n, bs, band_d, seed=1):
+    from repro_torch.core.patterns import (banded_mask,
+                                           block_mask_from_element_mask,
+                                           values_for_mask)
+    a = values_for_mask(banded_mask(n, band_d), seed=seed).astype(np.float32)
+    b = values_for_mask(banded_mask(n, band_d // 2 + 1),
+                        seed=seed + 1).astype(np.float32)
+    ma = block_mask_from_element_mask(np.abs(a) > 0, bs)
+    mb = block_mask_from_element_mask(np.abs(b) > 0, bs)
+    return a, b, ma, mb
+
+
+def _shards(rank, *arrays):
+    import torch
+    return [torch.from_numpy(np.ascontiguousarray(x[rank])) for x in arrays]
+
+
+def _gather_c(cb, cr, cc, grid, bs):
+    """Every rank's C shard, assembled dense on every rank."""
+    from repro_torch.core import distributed as dist
+    parts = [dist.all_gather(None, x).numpy() for x in (cb, cr, cc)]
+    return dist.gather_dense(*parts, grid, bs)
+
+
+# ---------------------------------------------------------------------------
+# the distributed multiplies (ports of dist_scenarios.py's scenarios)
+# ---------------------------------------------------------------------------
+
+def halo_correctness(rank, p, n=256, bs=8, use_pair_kernel=False, d=12,
+                     seed=1):
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_spmm_mesh
+    a, b, ma, mb = _setup(n, bs, d, seed=seed)
+    plan = dist.plan_distribution(ma, mb, bs, p)
+    sa = dist.distribute_morton(a, bs, plan)
+    sb = dist.distribute_morton(b, bs, plan)
+    comm = {}
+    cb, cr, cc, npairs = dist.halo_spmm(
+        make_spmm_mesh(), "dev", plan, *_shards(rank, *sa, *sb),
+        use_pair_kernel=use_pair_kernel, comm=comm)
+    out = _gather_c(cb, cr, cc, plan.grid, bs)
+    np.testing.assert_allclose(out, a @ b, atol=1e-3)
+    total_pairs = int(dist.all_gather(None, npairs.reshape(1)).sum())
+    assert total_pairs > 0
+    return {"collective_bytes": comm.get("collective_bytes", 0),
+            "halo_hops": plan.halo_hops, "pairs": total_pairs}
+
+
+def halo_random_pattern(rank, p):
+    """Locality-free pattern still computes correctly (just more halo)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.patterns import (block_mask_from_element_mask,
+                                           random_mask, values_for_mask)
+    from repro_torch.launch.mesh import make_spmm_mesh
+    n, bs = 128, 8
+    a = values_for_mask(random_mask(n, 0.05, seed=3), seed=3).astype(
+        np.float32)
+    ma = block_mask_from_element_mask(np.abs(a) > 0, bs)
+    plan = dist.plan_distribution(ma, ma, bs, p)
+    sa = dist.distribute_morton(a, bs, plan)
+    cb, cr, cc, _ = dist.halo_spmm(make_spmm_mesh(), "dev", plan,
+                                   *_shards(rank, *sa, *sa))
+    np.testing.assert_allclose(_gather_c(cb, cr, cc, plan.grid, bs), a @ a,
+                               atol=1e-3)
+    return {}
+
+
+def halo_pair_kernel(rank, p):
+    return halo_correctness(rank, p, n=128, d=10, seed=7,
+                            use_pair_kernel=True)
+
+
+def demand_halo_v2(rank, p, n=512, bs=8, use_pair_kernel=False):
+    """Demand-routed halo: correct, and fewer bytes than the v1 ring."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_spmm_mesh
+    a, b, ma, mb = _setup(n, bs, 12)
+    base = dist.plan_distribution(ma, mb, bs, p)
+    dplan = dist.plan_demand(ma, mb, bs, p)
+    args = _shards(rank, *dist.distribute_morton(a, bs, base),
+                   *dist.distribute_morton(b, bs, base))
+    mesh = make_spmm_mesh()
+    v1, v2 = {}, {}
+    outs = []
+    for fn, plan, comm in ((dist.halo_spmm, base, v1),
+                           (dist.demand_spmm, dplan, v2)):
+        cb, cr, cc, _ = fn(mesh, "dev", plan, *args,
+                           use_pair_kernel=use_pair_kernel, comm=comm)
+        outs.append(_gather_c(cb, cr, cc, plan.grid, bs))
+    for out in outs:
+        np.testing.assert_allclose(out, a @ b, atol=1e-3)
+    assert v2["collective_bytes"] < v1["collective_bytes"], (v1, v2)
+    return {"v1_bytes": v1["collective_bytes"],
+            "v2_bytes": v2["collective_bytes"]}
+
+
+def demand_pair_kernel(rank, p):
+    return demand_halo_v2(rank, p, use_pair_kernel=True)
+
+
+def summa_correctness(rank, p, perm_seed=None):
+    from repro_torch.core import spsumma
+    from repro_torch.core import distributed as dist
+    from repro_torch.launch.mesh import make_summa_mesh
+    pgrid = spsumma.summa_pgrid(p)
+    n, bs = 256, 8
+    a, b, ma, mb = _setup(n, bs, 12)
+    grid = n // bs
+    perm = None
+    if perm_seed is not None:
+        perm = spsumma.random_block_permutation(grid, seed=perm_seed)
+        mp = np.ix_(perm, perm)
+        ma, mb = ma[mp], mb[mp]
+    sp = spsumma.plan_summa(ma, mb, bs, pgrid)
+    args = _shards(rank, *spsumma.distribute_panels(a, bs, sp, perm=perm),
+                   *spsumma.distribute_panels(b, bs, sp, perm=perm))
+    cb, cr, cc, _ = spsumma.summa_spmm(make_summa_mesh(), ("pr", "pc"), sp,
+                                       *args)
+    out = _gather_c(cb, cr, cc, sp.grid, bs)
+    want = a @ b
+    if perm is not None:
+        gp = np.repeat(perm, bs) * bs + np.tile(np.arange(bs), grid)
+        want = want[np.ix_(gp, gp)]
+    np.testing.assert_allclose(out, want, atol=1e-3)
+    return {}
+
+
+def summa_random_permutation(rank, p):
+    return summa_correctness(rank, p, perm_seed=5)
+
+
+def summa_bytes(rank, p):
+    """The SpSUMMA program of benchmarks/bench_mesh_comm.py (n = 128 p,
+    banded_mask(n, 12) squared, bs 8): counted bytes per rank."""
+    from repro_torch.core import spsumma
+    from repro_torch.core.patterns import (banded_mask,
+                                           block_mask_from_element_mask,
+                                           values_for_mask)
+    from repro_torch.launch.mesh import make_summa_mesh
+    n, bs = 128 * p, 8
+    a = values_for_mask(banded_mask(n, 12), seed=1).astype(np.float32)
+    ma = block_mask_from_element_mask(np.abs(a) > 0, bs)
+    sp = spsumma.plan_summa(ma, ma, bs, spsumma.summa_pgrid(p))
+    sh = spsumma.distribute_panels(a, bs, sp)
+    comm = {}
+    cb, cr, cc, _ = spsumma.summa_spmm(make_summa_mesh(), ("pr", "pc"), sp,
+                                       *_shards(rank, *sh, *sh), comm=comm)
+    np.testing.assert_allclose(_gather_c(cb, cr, cc, sp.grid, bs), a @ a,
+                               atol=1e-3)
+    return {"collective_bytes_by_rank": comm["collective_bytes"],
+            "cap_panel": sp.cap_panel, "pgrid": sp.pgrid}
+
+
+def summa_pgrid_validation(rank, p):
+    """p=6: non-square rank counts fail fast everywhere."""
+    from repro_torch.core import spsumma
+    from repro_torch.launch import mesh as lmesh
+    assert p == 6, f"scenario needs 6 ranks, got {p}"
+    for fn in (lambda: spsumma.summa_pgrid(6),
+               lambda: lmesh.make_summa_mesh(),
+               lambda: lmesh.make_summa_mesh(2)):
+        try:
+            fn()
+        except ValueError as e:
+            assert "perfect-square" in str(e) or "mis-shard" in str(e), e
+        else:
+            raise AssertionError("expected ValueError for p=6")
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# the mesh executor (ports of dist_scenarios.py's mesh_engine_* scenarios)
+# ---------------------------------------------------------------------------
+
+def equivalence_program(Session, engine):
+    """Banded, random, symmetric and NIL-quadrant operands through five
+    exact multiplies (with transposes) and a truncated one; returns the
+    checksums, the engine's stats and the task counts.  The same text
+    runs on the port and on the reference."""
+    from repro_torch.core.patterns import (banded_mask, random_mask,
+                                           random_symmetric_mask,
+                                           values_for_mask)
+    n = 128
+    a = values_for_mask(banded_mask(n, 9), seed=1)
+    b = values_for_mask(random_mask(n, 0.08, seed=2), seed=2)
+    s = values_for_mask(random_symmetric_mask(n, 0.12, seed=3), seed=3,
+                        symmetric=True)
+    a[: n // 2, n // 2:] = 0.0           # NIL quadrant
+    sess = Session(engine=engine, leaf_n=32, bs=8)
+    A, B = sess.from_dense(a), sess.from_dense(b)
+    S = sess.from_dense(s, upper=True)
+    checks, fetched = [], []
+    for got_m, want in [(A @ B, a @ b), (A.T @ B, a.T @ b),
+                        (A @ B.T, a @ b.T), (A.multiply(B, tau=0.0), a @ b),
+                        (S.sym_square(), s @ s)]:
+        got = got_m.to_dense()
+        np.testing.assert_allclose(got, want, atol=1e-3)
+        checks.append(float(np.abs(got).sum()))
+        fetched.append(list(sess.engine_stats()["fetched_bytes"]))
+    T = A.multiply(B, tau=1e-3)
+    assert np.abs(T.to_dense() - a @ b).max() < 5e-2
+    return {"checksum": " ".join(f"{c:.6f}" for c in checks),
+            "fetched_after_each": fetched, "stats": sess.engine_stats(),
+            "task_counts": {str(k): v for k, v in sess.task_counts().items()}}
+
+
+def _mesh_engine(**kw):
+    from repro_torch.launch.mesh_exec import MeshEngine
+    return MeshEngine(device="cpu", **kw)
+
+
+def _plain(stats):
+    """A stats dict as JSON (numpy scalars to Python)."""
+    return json.loads(json.dumps(stats, default=lambda x: x.item()))
+
+
+def mesh_engine_equivalence(rank, p):
+    """Session(engine=MeshEngine) == float64 on p gloo ranks; counters
+    monotone; the checksum is printed for the cross-p comparison."""
+    from repro_torch import Session
+    out = equivalence_program(Session, _mesh_engine())
+    prev = np.zeros(p, np.int64)
+    for cur in out["fetched_after_each"]:
+        assert (np.asarray(cur) >= prev).all(), "fetch counters monotone"
+        prev = np.asarray(cur)
+    st = out["stats"]
+    assert st["n_dev"] == p
+    assert sum(st["pushed_bytes"]) > 0
+    if p > 1:
+        assert sum(st["fetched_blocks"]) > 0
+    out["stats"] = _plain(st)
+    return out
+
+
+def mesh_engine_counters(rank, p):
+    """Re-using resident operands is free (locality); rebinding a plan's
+    inputs makes them stale (re-pushed); free then reuse keeps working."""
+    from repro_torch import Session
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((128, 128)) * 0.1
+    sess = Session(engine=_mesh_engine(), leaf_n=32, bs=8, lazy=True)
+    X = sess.from_dense(a, name="X")
+    plan = sess.compile(X @ X)
+    Y = plan.run()
+    np.testing.assert_allclose(Y.to_dense(), a @ a, atol=1e-3)
+    push1 = sum(sess.engine_stats()["pushed_bytes"])
+    plan.run()
+    Y.to_dense()
+    st2 = sess.engine_stats()
+    delta_replay = sum(st2["pushed_bytes"]) - push1
+    assert delta_replay < push1, (delta_replay, push1)
+    a2 = rng.standard_normal((128, 128)) * 0.1
+    Z = plan.run(X=a2)
+    np.testing.assert_allclose(Z.to_dense(), a2 @ a2, atol=1e-3)
+    st3 = sess.engine_stats()
+    delta_rebind = sum(st3["pushed_bytes"]) - sum(st2["pushed_bytes"])
+    assert delta_rebind > delta_replay, (delta_rebind, delta_replay)
+    assert st3["n_dev"] == p
+    # free then reuse, on an eager session
+    sess = Session(engine=_mesh_engine(), leaf_n=32, bs=8)
+    M = sess.from_dense(a)
+    P = M @ M
+    P.to_dense()
+    st1 = sess.engine_stats()
+    sess.free(P)
+    st2 = sess.engine_stats()
+    assert st2["device_leaves"] <= st1["device_leaves"]
+    assert st2["device_blocks"] <= st1["device_blocks"]
+    assert st2["fetched_bytes"] == st1["fetched_bytes"]
+    Q = M @ M.T
+    np.testing.assert_allclose(Q.to_dense(), a @ a.T, atol=1e-3)
+    return {"push_first": push1, "push_replay": delta_replay,
+            "push_rebind": delta_rebind,
+            "device_leaves_by_rank": [st1["device_leaves"],
+                                      st2["device_leaves"]]}
+
+
+def bench_program(Session, engine, p):
+    """benchmarks/bench_mesh_comm.py::child's mesh program (n = 128 p,
+    banded_mask(n, 12) @ banded_mask(n, 7), leaf_n 32, bs 8); returns its
+    record and the engine's stats."""
+    from repro_torch.core.patterns import banded_mask, values_for_mask
+    n = 128 * p
+    a = values_for_mask(banded_mask(n, 12), seed=1)
+    b = values_for_mask(banded_mask(n, 7), seed=2)
+    sess = Session(engine=engine, leaf_n=32, bs=8)
+    A, B = sess.from_dense(a), sess.from_dense(b)
+    C = A @ B
+    np.testing.assert_allclose(C.to_dense(), a @ b, atol=1e-3)
+    st = sess.engine_stats()
+    rec = {"scheme": "mesh", "p": p, "n": n,
+           "max_fetched_bytes_per_dev": max(st["fetched_bytes"]),
+           "sum_fetched_blocks": sum(st["fetched_blocks"]),
+           "max_pushed_bytes_per_dev": max(st["pushed_bytes"]),
+           "max_collective_bytes_per_dev": max(st["collective_bytes"]),
+           "waves": st["waves"]}
+    return {"record": rec, "stats": _plain(st),
+            "task_counts": {str(k): v for k, v in sess.task_counts().items()}}
+
+
+def bench_mesh(rank, p):
+    from repro_torch import Session
+    return bench_program(Session, _mesh_engine(), p)
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def _rank_run(rank, p, names):
+    """Every named scenario on this rank, in order."""
+    return {name: globals()[name](rank, p) for name in names}
+
+
+def run_ranks(p, names, timeout=240.0):
+    from repro_torch.launch.mesh import launch_ranks
+    res = launch_ranks(_rank_run, p, args=(names,), timeout=timeout)
+    out = res[0]
+    for name in names:
+        for key in list(out[name]):
+            if key.endswith("_by_rank"):
+                out[name][key] = [r[name][key] for r in res]
+    return out
+
+
+def run_reference(name):
+    """A program's reference run: the reference's MeshEngine over the
+    forced host devices of this process."""
+    import jax
+
+    import repro
+    from repro.launch.mesh_exec import MeshEngine
+    p = len(jax.devices())
+    if name == "mesh_engine_equivalence":
+        out = equivalence_program(repro.Session, MeshEngine())
+    else:
+        out = bench_program(repro.Session, MeshEngine(n_dev=p), p)
+    out["stats"] = _plain(out["stats"])
+    return out
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1] == "ref":
+        result = run_reference(sys.argv[2])
+    else:
+        result = run_ranks(int(sys.argv[1]), sys.argv[2:])
+    print("RESULT " + json.dumps(result))
+    print("OK")
