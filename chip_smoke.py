@@ -91,6 +91,34 @@ mesh    — ``repro_torch.launch.mesh_exec.MeshEngine`` on a
              failed rank, a timeout or a count that differs fails the
              smoke.  No multi-GPU speed is claimed: the ranks share one
              card.
+train   — the training path (after mesh, before lm and its profiler).
+             The backward kernel (``csrc/block_attention_bwd.cu``) against
+             the plain backward (``ref.banded_attention_bwd_ref``) at hd
+             16, 64, 120, 128 and 160, k and v with H or H/4 heads, causal
+             and bidirectional, float32 and bfloat16: dq, dk and dv element
+             by element by phase 2's rule, and the plain backward without
+             the softmax's row term rowsum(P dP) must miss it.  Then the
+             layer shape (32 x 8192 x 120 bf16, 8 kv heads, window 4096,
+             seeded inputs): the same check one kv group at a time, the
+             control on group 0, the kernel's time beside its bound (five
+             products of the band at the bf16 tensor-core rate, which
+             must come to about 0.98 ms), the plain backward's and
+             ``scaled_dot_product_attention``'s backward with the band as
+             a boolean mask (``enable_gqa=True``; a yardstick the port
+             never calls).  (a) ``launch.sharding.TrainStep`` on
+             ``h2o-danube3-4b`` at full width and depth, B = 1, S = 8192
+             (the window path with block 1024), one repeated
+             ``SyntheticLM`` batch: a warm-up step (learning rate 0 by the
+             schedule's warmup), then 4 measured steps, counters zeroed
+             before them: per step the seconds, tokens/s, loss, gradient
+             norm, and the backward kernel's CUDA-event share; the loss
+             must fall from step 1 to step 3, every gradient norm be
+             finite, and each step launch ``banded_attention`` 48 times on
+             ``wgmma`` (the forward and the remat recompute of 24 layers)
+             and the backward 24 times; ``max_memory_allocated``.  (b)
+             ``launch.train.main`` on the card: the smoke config at S =
+             128 (window 32, so the kernels run), 30 steps, a drill failure
+             at step 12: one restart and a falling loss.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -174,12 +202,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 #: the TPU kernel each CUDA kernel replaces (pl.pallas_call sites)
+#: (the backward has no Pallas kernel: it is the gradient of the forward's,
+#: which the reference takes by XLA's autodiff of layers.windowed_attention)
 REPLACES = {"bsmm_pairs": "src/repro/kernels/bsmm_pairs.py:78",
             "batched_gemm": "src/repro/kernels/batched_gemm.py:52",
-            "banded_attention": "src/repro/kernels/block_attention.py:102"}
+            "banded_attention": "src/repro/kernels/block_attention.py:102",
+            "banded_attention_bwd": "src/repro/kernels/block_attention.py:102"}
 #: row name -> the launch counter (and csrc/ source) of its kernel
 COUNTER = {"bsmm_pairs": "bsmm_pairs", "batched_gemm": "batched_gemm",
-           "banded_attention": "block_attention"}
+           "banded_attention": "block_attention",
+           "banded_attention_bwd": "block_attention_bwd"}
 
 LEAF_N, BS = 2048, 32
 N_SAMPLE = 256
@@ -1852,6 +1884,344 @@ def mesh_phase(torch, ops, ref) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase train: the training path at full width
+# ---------------------------------------------------------------------------
+
+#: full-width train step (batch, tokens): S > window, so every layer takes
+#: the window path (block 1024) forward, in its remat recompute and back
+TRAIN_SHAPE = (1, 8192)
+#: measured steps of the full-width step, after one warm-up step whose
+#: learning rate the schedule's warmup sets to 0
+TRAIN_STEPS = 4
+#: the backward kernel's layer shape: (H, H_kv, S, D, window), bf16, causal
+BWD_LAYER = (32, 8, 8192, 120, 4096)
+#: the smoke driver's run (launch/train.py): steps, drill step
+DRIVER_RUN = (30, 12)
+
+
+def plain_bwd32(ref, q, k, v, do, window, causal):
+    """The plain backward's float32 result on the inputs cast to float32."""
+    return ref.banded_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                        do.float(), window, causal=causal)
+
+
+def dq_without_row_term(torch, ref, q, k, v, do, window, causal):
+    """The control: dq of the plain backward with dS = P dP, the softmax's
+    row term ``rowsum(P dP)`` dropped (float32)."""
+    d, g = q.shape[-1], q.shape[0] // k.shape[0]
+    q32, do32 = q.float(), do.float()
+    ke, ve = (t.float().repeat_interleave(g, dim=0) for t in (k, v))
+    scores = torch.einsum("hqd,hkd->hqk", q32, ke) / d ** 0.5
+    mask = ref.band_mask(q.shape[1], window, causal, device=q.device)
+    p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    ds = p * torch.einsum("hqd,hkd->hqk", do32, ve)
+    return torch.einsum("hqk,hkd->hqd", ds, ke) / d ** 0.5
+
+
+def bwd_case(torch, rng, h, h_kv, s, d, dtype):
+    q, do = (torch.tensor(rng.standard_normal((h, s, d)), dtype=dtype,
+                          device="cuda") for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((h_kv, s, d)), dtype=dtype,
+                         device="cuda") for _ in range(2))
+    return q, k, v, do
+
+
+def check_attention_bwd_small(torch, ref) -> float:
+    """The backward kernel against the plain backward at small shapes: hd
+    16, 64, 120, 128, 160; k and v with H or H/4 heads; causal and
+    bidirectional; float32 and bfloat16.  Each of dq, dk, dv element by
+    element (:func:`check_elementwise`); the control must miss on the
+    first shape of each type."""
+    from repro_torch.kernels import block_attention_bwd as kbb
+    rng = np.random.default_rng(5)
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            for i, (h, h_kv, s, d, window) in enumerate((
+                    (8, 2, 300, 64, 128), (4, 4, 256, 16, 64),
+                    (8, 2, 200, 120, 64), (4, 4, 192, 120, 64),
+                    (4, 1, 256, 128, 64), (8, 8, 130, 128, 32),
+                    (6, 3, 257, 160, 192))):
+                q, k, v, do = bwd_case(torch, rng, h, h_kv, s, d, dtype)
+                got = kbb.banded_attention_bwd(q, k, v, do, window=window,
+                                               causal=causal)
+                torch.cuda.synchronize()
+                want = plain_bwd32(ref, q, k, v, do, window, causal)
+                what = (f"banded_attention_bwd {(h, h_kv, s, d)} "
+                        f"window={window} causal={causal} {dtype}")
+                errs = [check_elementwise(torch, f"{what} {name}", a, w,
+                                          dtype)
+                        for name, a, w in zip(("dq", "dk", "dv"), got, want)]
+                worst = max(worst, *errs)
+                log(f"  banded_attention_bwd H={h} H_kv={h_kv} S={s:4d} "
+                    f"D={d:3d} window={window:3d} causal={causal!s:5s} "
+                    f"{str(dtype):14s} max_abs_err dq/dk/dv "
+                    f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}")
+                if i == 0:
+                    short = dq_without_row_term(torch, ref, q, k, v, do,
+                                                window, causal)
+                    log("    without rowsum(P dP) the check fails, as it "
+                        "must: " + must_fail(
+                            torch, f"{what} dq without the row term",
+                            short.to(dtype), want[0]))
+    return worst
+
+
+def time_attention_bwd(torch, ref) -> dict:
+    """The backward kernel at the layer shape (bf16, seeded inputs): held
+    against the plain backward one kv group at a time, the control on
+    group 0, then timed beside its bound, the plain backward (every group)
+    and ``scaled_dot_product_attention``'s backward with the band as a
+    boolean mask (``enable_gqa=True``, a yardstick the port never calls)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import block_attention_bwd as kbb
+    from repro_torch.launch.roofline import BF16_FLOPS
+
+    h, h_kv, s, d, window = BWD_LAYER
+    gen = torch.Generator("cuda").manual_seed(7)
+    q, do = (torch.randn((h, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((h_kv, s, d), generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(2))
+    kern = lambda: kbb.banded_attention_bwd(  # noqa: E731
+        q, k, v, do, window=window, causal=True)
+    got = kern()
+    g = h // h_kv
+    err = 0.0
+    for j in range(h_kv):
+        qs, dos = q[j * g:(j + 1) * g], do[j * g:(j + 1) * g]
+        want = plain_bwd32(ref, qs, k[j:j + 1], v[j:j + 1], dos, window,
+                           True)
+        for name, a, w in zip(("dq", "dk", "dv"),
+                              (got[0][j * g:(j + 1) * g], got[1][j:j + 1],
+                               got[2][j:j + 1]), want):
+            err = max(err, check_elementwise(
+                torch, f"banded_attention_bwd layer shape, kv head {j} "
+                f"{name}", a, w, torch.bfloat16))
+        if j == 0:
+            short = dq_without_row_term(torch, ref, qs, k[:1], v[:1], dos,
+                                        window, True)
+            log("    layer shape: without rowsum(P dP) the check fails, as "
+                "it must: " + must_fail(torch, "dq without the row term",
+                                        short.to(torch.bfloat16), want[0]))
+            del short
+        del want
+    del got
+
+    def plain():
+        for j in range(h_kv):
+            plain_bwd32(ref, q[j * g:(j + 1) * g], k[j:j + 1], v[j:j + 1],
+                        do[j * g:(j + 1) * g], window, True)
+
+    pairs = band_pairs(s, window, True)
+    flops = 5 * 2.0 * d * pairs * h      # q k^T, do v^T, dS k, P^T do, dS^T q
+    # q, do, dq and k, v, dk, dv: each read or written once
+    n_bytes = (3 * q.numel() + 4 * k.numel()) * q.element_size()
+    res = {"ms": cuda_ms(torch, kern, reps=3, warmup=1),
+           "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
+           **bound_ms(n_bytes, flops, BF16_FLOPS), "max_abs_err": err,
+           "bytes": n_bytes, "flops": flops, "band_pairs_per_head": pairs,
+           "launches_per_backward": 1,
+           "shape": {"heads": h, "kv_heads": h_kv, "seq": s, "head_dim": d,
+                     "window": window, "causal": True, "dtype": "bf16"}}
+    res.update(rates(res))
+    if not 0.95 <= res["bound_ms"] <= 1.0:
+        raise AssertionError(f"the backward's bound at the layer shape is "
+                             f"{res['bound_ms']} ms, not about 0.98")
+    mask = ref.band_mask(s, window, True, device="cuda")
+    qs, ks, vs = (t[None].detach().clone().requires_grad_()
+                  for t in (q, k, v))
+    out = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                         enable_gqa=True)
+    res["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+        out, (qs, ks, vs), do[None], retain_graph=True), reps=3, warmup=1)
+    del out, qs, ks, vs, mask, q, k, v, do
+    torch.cuda.empty_cache()
+    return res
+
+
+class EventSpans:
+    """CUDA events around every call of the named functions of a module
+    while the block runs (the counting wrappers run inside); ``ms()`` is
+    the device time the calls spanned, summed."""
+
+    def __init__(self, torch, module, names):
+        self.torch, self.module = torch, module
+        self._orig = {n: getattr(module, n) for n in names}
+        self.events: dict = {n: [] for n in names}
+
+    def __enter__(self):
+        def wrap(name):
+            orig = self._orig[name]
+
+            def fn(*args, **kw):
+                ev = [self.torch.cuda.Event(enable_timing=True)
+                      for _ in range(2)]
+                ev[0].record()
+                out = orig(*args, **kw)
+                ev[1].record()
+                self.events[name].append(ev)
+                return out
+            return fn
+        for name in self._orig:
+            setattr(self.module, name, wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.module, name, fn)
+
+    def ms(self, name) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events.pop(name))
+
+
+def train_full_width(torch, ops, launches) -> dict:
+    """(a) ``TrainStep`` on ``h2o-danube3-4b`` at full width and depth,
+    B x S = TRAIN_SHAPE, one repeated ``SyntheticLM`` batch: a warm-up
+    step (learning rate 0), then TRAIN_STEPS measured steps whose loss
+    must fall and whose gradient norms must be finite, each launching the
+    forward kernel twice a layer and the backward kernel once."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(LM_ARCH)
+    b, s = TRAIN_SHAPE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "state_gb": torch.cuda.memory_allocated() / 1e9}
+    batch = {k: torch.as_tensor(x, device="cuda") for k, x in
+             SyntheticLM(cfg.vocab, s, b, seed=0).batch_at(0).items()}
+    shape = ShapeSpec("train_8k", "train", s, b)
+    step = TrainStep(cfg, peak_lr=3e-4, warmup=1,
+                     total_steps=TRAIN_STEPS + 1).step_fn(shape)
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)           # warm-up, lr 0
+    torch.cuda.synchronize()
+    out["warmup_s"] = time.perf_counter() - t0
+    log(f"  train (a) {cfg.name} B={b} S={s}: state {out['state_gb']:.2f} "
+        f"GB, warm-up step {out['warmup_s']:.3f} s, loss "
+        f"{float(m['loss']):.4f}, lr {float(m['lr'])}")
+    rows = []
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        with EventSpans(torch, ops, ("_banded_bwd_kernel",
+                                     "_banded_attention_kernel")) as ev:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            row = {"step": i + 1, "seconds": sec, "tokens_per_s": b * s / sec,
+                   "loss": float(m["loss"]),
+                   "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                   "bwd_kernel_ms": ev.ms("_banded_bwd_kernel"),
+                   "fwd_kernel_ms": ev.ms("_banded_attention_kernel")}
+        row["bwd_share"] = row["bwd_kernel_ms"] / 1e3 / sec
+        rows.append(row)
+        log(f"    step {row['step']}: {sec:.3f} s, "
+            f"{row['tokens_per_s']:.1f} tokens/s, loss {row['loss']:.4f}, "
+            f"grad_norm {row['grad_norm']:.4f}, lr {row['lr']:.3g}, "
+            f"banded_attention_bwd {row['bwd_kernel_ms']:.1f} ms "
+            f"(share {row['bwd_share']:.3f}), banded_attention "
+            f"{row['fwd_kernel_ms']:.1f} ms")
+    counts = dict(launches)
+    out.update(steps=rows, launches=counts, designs=variant_counts(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+               step_s=float(np.median([r["seconds"] for r in rows])))
+    out["tokens_per_s"] = b * s / out["step_s"]
+    del params, opt, m
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(r["grad_norm"]) for r in rows):
+        raise AssertionError(f"train (a): a gradient norm is not finite: "
+                             f"{[r['grad_norm'] for r in rows]}")
+    if not rows[2]["loss"] < rows[0]["loss"]:
+        raise AssertionError(f"train (a): the loss did not fall from step 1 "
+                             f"to step 3: {[r['loss'] for r in rows]}")
+    want = {"block_attention": 2 * cfg.n_layers * TRAIN_STEPS,
+            "block_attention_bwd": cfg.n_layers * TRAIN_STEPS}
+    if any(counts[k] != n for k, n in want.items()) or \
+            counts["block_attention"] != \
+            out["designs"]["block_attention"]["wgmma"]:
+        raise AssertionError(f"train (a) launched {counts} "
+                             f"({out['designs']}), not {want} on wgmma")
+    log(f"  train (a): median step {out['step_s']:.3f} s, "
+        f"{out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
+        f"{out['peak_mem_gb']:.2f} GB; launches per step: block_attention "
+        f"{counts['block_attention'] // TRAIN_STEPS}, block_attention_bwd "
+        f"{counts['block_attention_bwd'] // TRAIN_STEPS}")
+    return out
+
+
+def train_driver(torch, launches) -> dict:
+    """(b) ``launch/train.main`` on the card: the smoke config (window 32 <
+    S = 128, so the kernels run), a drill failure, one restart, a falling
+    loss (the driver asserts it)."""
+    import contextlib
+    import io
+    import re
+    import shutil
+    from repro_torch.launch import train
+
+    steps, drill = DRIVER_RUN
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    reset_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(["--arch", "h2o-danube-3-4b", "--smoke", "--seq",
+                         "128", "--batch", "2", "--steps", str(steps),
+                         "--drill-fail-step", str(drill), "--ckpt-every",
+                         "5", "--ckpt-dir", str(ckpt_dir)])
+    wall = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    text = buf.getvalue().strip()
+    log(f"  train (b): {text}")
+    m = re.search(r"loss (\S+) -> (\S+) .*restarts=(\d+)", text)
+    if rc != 0 or not m or int(m.group(3)) != 1:
+        raise AssertionError(f"train (b): rc {rc}, output {text!r}: not one "
+                             f"restart")
+    counts = dict(launches)
+    if counts["block_attention_bwd"] <= 0 or counts["block_attention"] <= 0:
+        raise AssertionError(f"train (b) launched {counts}")
+    return {"output": text, "wall_s": wall, "loss_first": float(m.group(1)),
+            "loss_last": float(m.group(2)), "restarts": int(m.group(3)),
+            "launches": counts}
+
+
+def train_phase(torch, ops, ref, launches) -> dict:
+    out = {"kernel_small_max_abs_err": check_attention_bwd_small(torch,
+                                                                  ref)}
+    tm = time_attention_bwd(torch, ref)
+    log(f"    banded_attention_bwd: ms={tm['ms']:.4f} "
+        f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']:.4f} "
+        f"(sdpa backward, band mask, enable_gqa) "
+        f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}; bytes "
+        f"{tm['bound_bytes_ms']:.4f}, operations {tm['bound_ops_ms']:.4f}) "
+        f"{tm['achieved_tflop_per_s']:.1f} TFLOP/s share_of_bound="
+        f"{tm['share_of_bound']:.4f} max_abs_err={tm['max_abs_err']:.3g} "
+        f"{tm['shape']}")
+    out["timing"] = {"banded_attention_bwd": tm}
+    out["full_width"] = train_full_width(torch, ops, launches)
+    out["driver"] = train_driver(torch, launches)
+    out["launches"] = {k: out["full_width"]["launches"][k]
+                       + out["driver"]["launches"][k]
+                       for k in out["driver"]["launches"]}
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase lm: the LM substrate at full width
 # ---------------------------------------------------------------------------
 
@@ -2152,11 +2522,12 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 #: banded_attention, the one its bf16 calls take; see each csrc/ header)
 DESIGN = {"bsmm_pairs": "persistent-warp-streams-cp.async-3xtf32-mma",
           "batched_gemm": "persistent-cp.async-ring-fma",
-          "banded_attention": "wgmma-tma-split-p"}
+          "banded_attention": "wgmma-tma-split-p",
+          "banded_attention_bwd": "two-grid-fma-recompute"}
 
 #: the phase whose run gives each kernel's headline row
 HEADLINE = {"bsmm_pairs": "banded", "batched_gemm": "banded_gemm",
-            "banded_attention": "lm"}
+            "banded_attention": "lm", "banded_attention_bwd": "train"}
 
 
 def kernel_rows(phases, launches_total, worst) -> list:
@@ -2188,7 +2559,8 @@ def ptxas_summary(text: str) -> list:
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?(bsmm_pairs_kernel|"
                       r"batched_gemm_kernel|banded_attention_kernel|"
-                      r"banded_attention_wgmma)I(\w*?)EE", ln)
+                      r"banded_attention_wgmma|attention_bwd_dq_kernel|"
+                      r"attention_bwd_dkv_kernel)I(\w*?)EE", ln)
         if m:
             args = re.findall(r"Li(\d+)E", m.group(2) + "E")
             if "bfloat16" in m.group(2):
@@ -2296,6 +2668,16 @@ def main() -> int:
         total[k] += mesh["launches"][k]
         worst[k] = max(worst[k], mesh["max_abs_err"][k])
     log(f"  mesh_s={mesh['mesh_s']:.3f} launches={total}")
+
+    log("phase train: the training path at full width")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    phases["train"] = train_phase(torch, ops, ref, _build.LAUNCHES)
+    worst["banded_attention_bwd"] = phases["train"][
+        "kernel_small_max_abs_err"]
+    total = {k: total.get(k, 0) + phases["train"]["launches"][k]
+             for k in _build.KERNELS}
+    log(f"  train_s={time.perf_counter() - t0:.3f} launches={total}")
 
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()

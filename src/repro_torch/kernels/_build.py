@@ -25,7 +25,7 @@ import tempfile
 
 #: kernel name -> launches so far (reset by callers that count one run)
 LAUNCHES: dict[str, int] = {"bsmm_pairs": 0, "batched_gemm": 0,
-                            "block_attention": 0}
+                            "block_attention": 0, "block_attention_bwd": 0}
 
 #: kernel name -> design -> launches so far, for kernels with several designs
 VARIANT_LAUNCHES: dict[str, dict[str, int]] = {

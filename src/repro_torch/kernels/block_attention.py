@@ -72,6 +72,40 @@ def design_for(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "fma"
 
 
+def check_launch(name: str, q: torch.Tensor, k: torch.Tensor,
+                 v: torch.Tensor, window: int, like_q=()) -> None:
+    """Raise unless the operands are what the attention kernels take: q
+    (and each tensor of ``like_q``) (H, S, D), k, v (H_kv, S, D) with H_kv
+    dividing H; float32 or bfloat16 of one type, on one CUDA device,
+    contiguous; H <= 65535, D even and <= 256, S < 2**31; window >= 1."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors, got {dev}")
+    ts = (q, k, v, *like_q)
+    if q.dtype not in (torch.float32, torch.bfloat16) \
+            or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
+                        f"type, got {[str(t.dtype) for t in ts]}")
+    check_heads(q, k, v)
+    for t in like_q:
+        if t.shape != q.shape:
+            raise ValueError(f"{name}: {tuple(t.shape)} is not q's shape "
+                             f"{tuple(q.shape)}")
+    h, s, d = q.shape
+    if h > 65535 or d % 2 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name} kernel takes H <= 65535 and an even "
+                         f"D <= {MAX_HEAD_DIM}, got H={h} D={d}")
+    if s >= 2 ** 31:
+        raise ValueError(f"{name}: sequence too long")
+    if window < 1:
+        raise ValueError(f"{name}: window must be >= 1, got {window}")
+    for t in ts:
+        if t.device != dev:
+            raise ValueError(f"{name}: operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} takes contiguous tensors")
+
+
 def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      window: int, causal: bool = True) -> torch.Tensor:
     """``(H, S, D)`` sliding-window attention in ``q.dtype``.
@@ -81,32 +115,8 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               and <= 256
     window  : >= 1 key positions to each side, self included
     """
-    dev = q.device
-    if dev.type != "cuda":
-        raise ValueError(f"banded_attention kernel needs CUDA tensors, "
-                         f"got {dev}")
-    if q.dtype not in (torch.float32, torch.bfloat16) \
-            or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"banded_attention takes float32 or bfloat16 q, k, v "
-                        f"of one type, got {q.dtype}, {k.dtype}, {v.dtype}")
-    check_heads(q, k, v)
+    check_launch("banded_attention", q, k, v, window)
     h, s, d = q.shape
-    if h > 65535 or d % 2 or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"banded_attention kernel takes H <= 65535 and an "
-                         f"even D <= {MAX_HEAD_DIM}, got H={h} D={d}")
-    if s >= 2 ** 31:
-        raise ValueError("banded_attention: sequence too long")
-    if window < 1:
-        raise ValueError(f"banded_attention: window must be >= 1, got "
-                         f"{window}")
-    for t in (k, v):
-        if t.device != dev:
-            raise ValueError(f"banded_attention: operands on {t.device} and "
-                             f"{dev}")
-    for t in (q, k, v):
-        if not t.is_contiguous():
-            raise ValueError("banded_attention takes contiguous tensors")
-
     out = torch.empty_like(q)
     if h == 0 or s == 0:
         return out
@@ -114,7 +124,7 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     err = _entry(design, q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h,
         k.shape[0], s, d, min(window, s), int(causal),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"banded_attention ({design})")
     _build.LAUNCHES["block_attention"] += 1
     _build.VARIANT_LAUNCHES["block_attention"][design] += 1

@@ -6,6 +6,11 @@ is how the tests run here.  There is no fallback: a CUDA tensor never
 reaches the plain version, and a kernel that fails to build or launch
 raises.  Tensors on any other device are refused.  The contract of each
 op is defined by kernels/ref.py.
+
+``banded_attention`` is differentiable on both devices through one
+``torch.autograd.Function``: its backward runs the hand-written backward
+kernel (``csrc/block_attention_bwd.cu``) on CUDA tensors and the plain
+backward (``ref.banded_attention_bwd_ref``) on CPU tensors.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ from ._build import LAUNCHES, VARIANT_LAUNCHES
 from .batched_gemm import batched_gemm as _batched_gemm_kernel
 from .block_attention import banded_attention as _banded_attention_kernel
 from .block_attention import check_heads
+from .block_attention_bwd import banded_attention_bwd as _banded_bwd_kernel
 from .bsmm_pairs import bsmm_pairs as _bsmm_pairs_kernel
 
 __all__ = ["LAUNCHES", "VARIANT_LAUNCHES", "banded_attention",
@@ -65,7 +71,8 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``block_q == block_kv``), ``S`` a multiple of the block and
     ``window`` a multiple of ``block_kv``.  The result does not depend on
     the blocks (the mask is per element), so neither the kernel nor the
-    plain version reads them.
+    plain version reads them.  Differentiable in q, k and v on both
+    devices (:class:`_BandedAttention`).
     """
     check_heads(q, k, v)
     s = q.shape[1]
@@ -78,7 +85,33 @@ def banded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window % block_kv:
         raise ValueError(f"banded_attention: window={window} is not a "
                          f"multiple of block_kv={block_kv}")
-    if _on_cuda(q):
-        return _banded_attention_kernel(q, k, v, window=window,
-                                        causal=causal)
-    return ref.banded_attention_ref(q, k, v, window, causal=causal)
+    return _BandedAttention.apply(q, k, v, window, causal)
+
+
+class _BandedAttention(torch.autograd.Function):
+    """The kernel (CUDA) or the plain version (CPU) forward; the backward
+    kernel or the plain backward, on the forward's saved q, k and v (both
+    recompute the softmax; neither reads the forward's output)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal):
+        if _on_cuda(q):
+            out = _banded_attention_kernel(q, k, v, window=window,
+                                           causal=causal)
+        else:
+            out = ref.banded_attention_ref(q, k, v, window, causal=causal)
+        ctx.save_for_backward(q, k, v)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        if _on_cuda(q):
+            dq, dk, dv = _banded_bwd_kernel(q, k, v, do.contiguous(),
+                                            window=ctx.window,
+                                            causal=ctx.causal)
+        else:
+            dq, dk, dv = ref.banded_attention_bwd_ref(
+                q, k, v, do, ctx.window, causal=ctx.causal)
+        return dq, dk, dv, None, None

@@ -74,3 +74,18 @@ def banded_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = scores.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1)
     return torch.einsum("hqk,hkd->hqd", probs, v.float()).to(q.dtype)
+
+
+def banded_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, do: torch.Tensor, window: int,
+                             causal: bool = True) -> tuple:
+    """``(dq, dk, dv)`` of :func:`banded_attention_ref` at ``(q, k, v)`` for
+    the output gradient ``do``: autograd through the plain version in
+    float32, each gradient cast to its input's type once at the end.  dk
+    and dv are (H_kv, S, D), summed over each kv head's query heads."""
+    with torch.enable_grad():
+        q32, k32, v32 = (t.detach().float().requires_grad_()
+                         for t in (q, k, v))
+        out = banded_attention_ref(q32, k32, v32, window, causal=causal)
+        dq, dk, dv = torch.autograd.grad(out, (q32, k32, v32), do.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

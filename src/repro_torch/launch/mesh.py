@@ -113,7 +113,12 @@ def data_axes(mesh) -> tuple[str, ...]:
 
 def _rank_main(fn, rank: int, world_size: int, init_file: str, backend: str,
                timeout_s: float, args: tuple, results) -> None:
-    """Body of one rank's process: join the group, run ``fn``, report."""
+    """Body of one rank's process: join the group, run ``fn``, report.
+
+    The ranks meet at a barrier before teardown: a rank whose ``fn`` makes
+    no collective call would otherwise destroy its group while a slower
+    rank is still connecting to it.  A rank whose ``fn`` raises skips the
+    barrier and exits non-zero."""
     if backend == "nccl":
         torch.cuda.set_device(rank)
     dist.init_process_group(
@@ -121,7 +126,9 @@ def _rank_main(fn, rank: int, world_size: int, init_file: str, backend: str,
         world_size=world_size,
         timeout=datetime.timedelta(seconds=timeout_s))
     try:
-        results.put((rank, fn(rank, world_size, *args)))
+        result = fn(rank, world_size, *args)
+        dist.barrier()
+        results.put((rank, result))
     finally:
         dist.destroy_process_group()
 

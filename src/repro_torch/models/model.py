@@ -1,17 +1,21 @@
 """The LM of the assigned architectures, attention family (the port of
 ``repro/models/model.py``).
 
-One parameter schema + two entry points:
+One parameter schema + three entry points:
 
-* ``forward``      — full-sequence logits (prefill);
+* ``forward``      — full-sequence logits (training and prefill); under
+  autograd with ``remat=True`` each layer is recomputed in the backward
+  pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
+* ``loss_fn``      — next-token cross-entropy for training;
 * ``decode_step``  — one token with a KV cache (serve path).
 
 Parameters are a nested dict of tensors with the reference's keys and
 layouts; the layers are stacked along a leading L axis and run in a
-Python loop.  The dense family runs; the MoE FFN, the Mamba mixers of the
-ssm and hybrid families and the frame / patch frontends raise
-``NotImplementedError`` naming ROADMAP.md queue 1 item 8; ``loss_fn``
-waits for the training slice.
+Python loop.  :func:`params_from_numpy` and :func:`adamw_state_from_numpy`
+carry the reference's parameters and optimizer state across.  The dense
+family runs and trains; the MoE FFN, the Mamba mixers of the ssm and
+hybrid families and the frame / patch frontends raise
+``NotImplementedError`` naming ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -19,8 +23,10 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.engine import resolve_device
+from repro_torch.optim import AdamWState
 
 from . import layers as L
 from .config import ModelConfig
@@ -129,15 +135,26 @@ def params_from_numpy(tree: dict, device=None) -> Params:
     each JAX leaf) -> the port's, same nested keys, layers stacked on the
     leading axis as they are.  bfloat16 arrays cross as their bits."""
     device = resolve_device(device)
+    return _unflatten((path, _from_numpy(a, device))
+                      for path, a in _leaves(tree))
 
-    def conv(a):
-        a = np.array(a)              # a writable, contiguous copy
-        if a.dtype.name == "bfloat16":
-            return torch.from_numpy(a.view(np.int16)).view(
-                torch.bfloat16).to(device)
-        return torch.from_numpy(a).to(device)
 
-    return _unflatten((path, conv(a)) for path, a in _leaves(tree))
+def _from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a)                  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def adamw_state_from_numpy(step, m: dict, v: dict, device=None):
+    """The reference's ``AdamWState`` as numpy (``step`` and the moment
+    trees, each leaf ``np.asarray`` of the JAX leaf) -> the port's
+    :class:`repro_torch.optim.AdamWState` on ``device``."""
+    device = resolve_device(device)
+    return AdamWState(step=_from_numpy(np.asarray(step, np.int32), device),
+                      m=params_from_numpy(m, device),
+                      v=params_from_numpy(v, device))
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +226,13 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
             remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. Returns (logits (B,S,V), aux_loss).
 
-    ``batch["tokens"]``: (B, S) integer token ids.  ``remat`` is the
-    reference's training switch; the port has no training path yet, so it
-    has no effect (run under ``torch.inference_mode()``).
+    ``batch["tokens"]``: (B, S) integer token ids.  With ``remat`` and
+    gradients on, each layer keeps only its input for the backward pass and
+    is run again there (``torch.utils.checkpoint``, non-reentrant), as the
+    reference's ``jax.checkpoint`` around each layer body: on the window
+    path the attention kernel then launches twice a layer and step.
+    Without gradients (``torch.inference_mode()``, the prefill) ``remat``
+    changes nothing.
     """
     _check_family(cfg)
     embed = params["embed"]
@@ -220,10 +241,32 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
+    # one unbind per stacked leaf: its backward stacks the layers'
+    # gradients once, where indexing would add a full-size zero-filled
+    # gradient per layer
+    stacks = {k: w.unbind(0) for k, w in params["layers"].items()}
+    recompute = remat and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
-        x, a = _attn_block(cfg, _layer(params, i), x, positions)
+        lp = {k: ws[i] for k, ws in stacks.items()}
+        if recompute:
+            x, a = checkpoint(_attn_block, cfg, lp, x, positions,
+                              use_reentrant=False)
+        else:
+            x, a = _attn_block(cfg, lp, x, positions)
         aux = aux + a
     return _unembed(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
+            remat: bool = True) -> tuple[torch.Tensor, dict]:
+    """Mean next-token negative log-likelihood (+ 0.01 aux).  Returns
+    (loss, {"nll", "aux"}); ``batch["targets"]``: (B, S) token ids."""
+    logits, aux = forward(cfg, params, batch, remat=remat)
+    targets = torch.as_tensor(batch["targets"], device=logits.device).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    loss = nll.mean() + 0.01 * aux
+    return loss, {"nll": nll.mean(), "aux": aux}
 
 
 # ---------------------------------------------------------------------------

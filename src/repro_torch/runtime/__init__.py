@@ -1,11 +1,14 @@
-"""Runtime subsystems: cluster simulator, fault schedules and recovery.
+"""Runtime subsystems: cluster simulator, fault schedules and recovery,
+the training loop's fault tolerance and gradient compression.
 
 Submodules are imported lazily (PEP 562): the Chunks-and-Tasks scheduler
 (`scheduler`, `trace`, `recovery`) is pure numpy/stdlib and stays
-importable — and fast to import — without torch's CUDA context.  The
-gradient-compression, fault-injection and elastic-remeshing names
-(`compression`, `fault`, `elastic` in the reference) are not ported yet:
-they raise :class:`NotImplementedError` naming their ROADMAP item.
+importable — and fast to import — without torch's CUDA context.
+`compression` (int8 gradient round trip, torch ops) and `fault`
+(heartbeats, failure injection, the restartable ``TrainingRunner``) run
+on either device.  Elastic remeshing (`elastic` in the reference) is not
+ported yet: its names raise :class:`NotImplementedError` naming ROADMAP.md
+queue 1 item 7.
 """
 _EXPORTS = {
     # discrete-event Chunks-and-Tasks runtime simulator (DESIGN.md §4)
@@ -25,13 +28,18 @@ _EXPORTS = {
     "slow": ("recovery", "slow"),
     "join": ("recovery", "join"),
     "leave": ("recovery", "leave"),
+    # gradient compression
+    "compressed_grad_tree": ("compression", "compressed_grad_tree"),
+    "dequantize_int8": ("compression", "dequantize_int8"),
+    "quantize_int8": ("compression", "quantize_int8"),
+    # fault tolerance of the training loop
+    "FaultInjector": ("fault", "FaultInjector"),
+    "HeartbeatMonitor": ("fault", "HeartbeatMonitor"),
+    "TrainingRunner": ("fault", "TrainingRunner"),
 }
 
-#: gradient compression, fault tolerance and elastic remeshing of the
-#: training loop: not ported yet
-_NOT_PORTED = ("compressed_grad_tree", "dequantize_int8", "quantize_int8",
-               "FaultInjector", "HeartbeatMonitor", "TrainingRunner",
-               "elastic_remesh_plan", "reshard_tree")
+#: elastic remeshing of the training loop: not ported yet
+_NOT_PORTED = ("elastic_remesh_plan", "reshard_tree")
 
 __all__ = list(_EXPORTS)
 
@@ -40,7 +48,7 @@ def __getattr__(name: str):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"repro_torch.runtime.{name} is not ported yet (ROADMAP.md, "
-            f"queue 1 item 7: runtime/fault.py, elastic.py, compression.py)")
+            f"queue 1 item 7: runtime/elastic.py)")
     try:
         mod_name, attr = _EXPORTS[name]
     except KeyError:

@@ -497,6 +497,103 @@ def test_lm_prefill_runs_through_the_kernel(cuda_device, batch):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,h_kv,s,d,window", [
+    (8, 2, 200, 120, 64),      # the LM's GQA and hd; S a multiple of no tile
+    (4, 4, 130, 160, 32),      # hd 160: the 32-row tiles; no groups
+])
+def test_banded_attention_backward_matches_plain_version(
+        cuda_device, dtype, causal, h, h_kv, s, d, window):
+    """dq, dk and dv of the backward kernel, each element against the
+    plain backward's float32 result on the same inputs (:func:`_within`);
+    the plain backward without the ``rowsum(P dP)`` term must miss it."""
+    from repro_torch.kernels import block_attention_bwd as kbb
+    rng = np.random.default_rng(s + d)
+    q, do = (torch.tensor(rng.standard_normal((h, s, d)), dtype=dtype,
+                          device=cuda_device) for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((h_kv, s, d)), dtype=dtype,
+                         device=cuda_device) for _ in range(2))
+    before = ops.LAUNCHES["block_attention_bwd"]
+    got = kbb.banded_attention_bwd(q, k, v, do, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_attention_bwd"] == before + 1
+    want = ref.banded_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                        do.float(), window, causal=causal)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert _within(a, w)
+    # the control: dS = P dP, the softmax's row term dropped
+    g = h // h_kv
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+    ke, ve = (t.repeat_interleave(g, dim=0) for t in (k32, v32))
+    scores = torch.einsum("hqd,hkd->hqk", q32, ke) / d ** 0.5
+    mask = ref.band_mask(s, window, causal, device=cuda_device)
+    p = torch.softmax(scores.masked_fill(~mask, float("-inf")), dim=-1)
+    ds = p * torch.einsum("hqd,hkd->hqk", do32, ve)
+    assert not _within(torch.einsum("hqk,hkd->hqd", ds, ke) / d ** 0.5,
+                       want[0])
+
+
+def test_lm_backward_launches_the_kernel_once_per_layer(cuda_device):
+    """``loss_fn``'s backward on the h2o smoke config (S = 128 > window
+    32): the forward kernel twice a layer (the forward and its remat
+    recompute), the backward kernel once."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import _build
+    from repro_torch.models import model as M
+    cfg = get_smoke_config("h2o_danube3_4b")
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device=cuda_device)
+    for w in (params["embed"], *params["layers"].values()):
+        w.requires_grad_()
+    toks = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 129)), device=cuda_device)
+    _build.reset_launches()
+    loss, _ = M.loss_fn(cfg, params, {"tokens": toks[:, :-1],
+                                      "targets": toks[:, 1:]})
+    loss.backward()
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_attention"] == 2 * cfg.n_layers
+    assert ops.LAUNCHES["block_attention_bwd"] == cfg.n_layers
+    assert all(bool(torch.isfinite(w.grad).all())
+               for w in params["layers"].values())
+
+
+def test_train_step_on_the_card_takes_no_plain_path(cuda_device,
+                                                    monkeypatch):
+    """One ``TrainStep`` of the h2o smoke config on the card with the
+    plain attention versions made to raise: the step runs through the
+    kernels, and its loss equals the CPU step's within 1e-4."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw_init
+    cfg = get_smoke_config("h2o_danube3_4b")
+    batch = SyntheticLM(cfg.vocab, 128, 2).batch_at(0)
+    step = TrainStep(cfg, peak_lr=1e-2, warmup=1).step_fn()
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gpu = {k: ({n: w.to(cuda_device) for n, w in v.items()}
+               if isinstance(v, dict) else v.to(cuda_device))
+           for k, v in params.items()}
+    _, _, want = step(params, adamw_init(params),
+                      {k: torch.from_numpy(v) for k, v in batch.items()})
+
+    def plain(*a, **k):
+        raise AssertionError("a plain attention version ran on the card")
+
+    monkeypatch.setattr(ref, "banded_attention_ref", plain)
+    monkeypatch.setattr(ref, "banded_attention_bwd_ref", plain)
+    _, opt, got = step(gpu, adamw_init(gpu),
+                       {k: torch.from_numpy(v).to(cuda_device)
+                        for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert int(opt.step) == 1
+    assert abs(float(got["loss"]) - float(want["loss"])) <= 1e-4
+
+
 # ---------------------------------------------------------------------------
 # plan serving on the card
 # ---------------------------------------------------------------------------
@@ -582,7 +679,7 @@ def test_every_serving_wave_is_a_bsmm_pairs_mma_launch(cuda_device):
     waves = serving_waves(srv)
     assert len(srv.coalescer.waves) > 0
     assert ops.LAUNCHES == {"bsmm_pairs": waves, "batched_gemm": 0,
-                            "block_attention": 0}
+                            "block_attention": 0, "block_attention_bwd": 0}
     assert ops.VARIANT_LAUNCHES["bsmm_pairs"] == {"fma": 0, "mma": waves}
 
 

@@ -204,3 +204,38 @@ class TestOnRanks:
         (bench,) = [r for r in doc["records"]
                     if r["scheme"] == "summa" and r["p"] == p]
         assert bench["coll_bytes_per_dev"] == want
+
+
+def test_rank_main_meets_at_a_barrier_before_teardown(monkeypatch):
+    """``_rank_main`` calls ``dist.barrier()`` after ``fn`` returns and
+    before ``destroy_process_group()``, so no rank tears the group down
+    while another is still joining it; a rank whose ``fn`` raises skips
+    the barrier, still tears down, and raises.  ``torch.distributed`` is
+    patched: no process is started."""
+    from repro_torch.launch import mesh as lmesh
+    calls = []
+    for name in ("init_process_group", "barrier", "destroy_process_group"):
+        monkeypatch.setattr(lmesh.dist, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+
+    class Results:
+        def put(self, item):
+            calls.append(("put", item))
+
+    def fn(rank, world_size, x):
+        calls.append("fn")
+        return x + rank
+
+    lmesh._rank_main(fn, 1, 2, "/nonexistent/store", "gloo", 1.0, (41,),
+                     Results())
+    assert calls == ["init_process_group", "fn", "barrier",
+                     ("put", (1, 42)), "destroy_process_group"]
+
+    def bad(rank, world_size):
+        raise RuntimeError("boom")
+
+    calls.clear()
+    with pytest.raises(RuntimeError, match="boom"):
+        lmesh._rank_main(bad, 0, 2, "/nonexistent/store", "gloo", 1.0, (),
+                         Results())
+    assert calls == ["init_process_group", "destroy_process_group"]

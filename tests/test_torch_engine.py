@@ -360,13 +360,15 @@ class TestEngineContract:
             g.flush()
 
     def test_simulator_not_ported(self):
-        """The simulator is ported (``ClusterSim`` runs); the training
-        loop's fault injection is not, and says where it is queued."""
+        """The simulator is ported (``ClusterSim`` runs), and so is the
+        training loop's fault injection; elastic remeshing is not, and says
+        where it is queued."""
         g = PORT.CTGraph(engine="numpy")
         p = PORT.QTParams(32, 16, 4)
         r = PORT.qt_from_dense(g, np.eye(32), p)
         PORT.qt_multiply(g, p, r, r)
         assert t_tasks.ClusterSim(4).run(g).n_tasks == len(g.nodes)
         import repro_torch.runtime as rt
+        assert rt.FaultInjector({3: 0}).schedule == [(3, 0)]
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-            rt.FaultInjector
+            rt.reshard_tree

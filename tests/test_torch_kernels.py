@@ -16,6 +16,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import batched_gemm as kbg  # noqa: E402
 from repro_torch.kernels import block_attention as kba  # noqa: E402
+from repro_torch.kernels import block_attention_bwd as kbb  # noqa: E402
 from repro_torch.kernels import bsmm_pairs as kbp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -227,21 +228,25 @@ class TestDispatch:
             ops.batched_gemm(a, a)
 
     @pytest.mark.parametrize("kernel", [kbg.batched_gemm, kbp.bsmm_pairs,
-                                        kba.banded_attention])
+                                        kba.banded_attention,
+                                        kbb.banded_attention_bwd])
     def test_kernel_wrappers_refuse_cpu_tensors(self, kernel):
         """The launch wrappers never run a plain version themselves."""
         a = torch.zeros((2, 8, 8))
         idx = torch.zeros(2, dtype=torch.int32)
         args, kw = {kbg.batched_gemm: ((a, a), {}),
                     kbp.bsmm_pairs: ((a, a, idx, idx, idx), {"cap_c": 1}),
-                    kba.banded_attention: ((a, a, a), {"window": 4})}[kernel]
+                    kba.banded_attention: ((a, a, a), {"window": 4}),
+                    kbb.banded_attention_bwd: ((a, a, a, a),
+                                               {"window": 4})}[kernel]
         with pytest.raises(ValueError, match="CUDA"):
             kernel(*args, **kw)
 
     def test_sources_exist_and_are_named_by_loader(self):
         # kernel (csrc/<name>.cu) -> its C entry points' prefix
         entry = {"bsmm_pairs": "bsmm_pairs", "batched_gemm": "batched_gemm",
-                 "block_attention": "banded_attention"}
+                 "block_attention": "banded_attention",
+                 "block_attention_bwd": "banded_attention_bwd"}
         assert set(_build.KERNELS) == set(entry)
         for name in _build.KERNELS:
             src = _build.source_of(name)

@@ -204,9 +204,9 @@ class TestFacadeContract:
             make_engine(None)
 
     def test_simulator_not_ported(self):
-        """``simulate`` and ``reset_stats`` run now; what the runtime has
-        not ported (compression, fault injection, elastic remeshing of the
-        training loop) raises and names its ROADMAP item."""
+        """``simulate`` and ``reset_stats`` run now, and so do the training
+        loop's compression and fault injection; what the runtime has not
+        ported (elastic remeshing) raises and names its ROADMAP item."""
         sess = repro_torch.Session(engine="numpy", leaf_n=16, bs=4)
         sess.from_dense(np.eye(32))
         assert sess.simulate(p=4).n_workers == 4
@@ -214,7 +214,8 @@ class TestFacadeContract:
         assert all(st.bytes_received == 0 and st.messages_received == 0
                    for st in sess.scheduler.store.stats)
         import repro_torch.runtime as rt
-        for name in ("quantize_int8", "TrainingRunner", "reshard_tree"):
+        assert callable(rt.quantize_int8) and callable(rt.TrainingRunner)
+        for name in ("elastic_remesh_plan", "reshard_tree"):
             with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
                 getattr(rt, name)
 
@@ -229,11 +230,13 @@ class TestFacadeContract:
 
 def test_port_imports_neither_jax_nor_repro():
     """A whole CPU ``A @ B`` session, simulated, the solvers, a plan
-    server, the Perfetto export, the report, the roofline and the mesh
+    server, the Perfetto export, the report, the roofline, the mesh
     (a world of one: ``MeshEngine``, the halo, demand and SpSUMMA
-    multiplies, ``bsmm``) load no jax and no ``repro`` module; importing
-    the runtime, the analysis, the server, the launch modules and the
-    mesh's modules starts no CUDA context and no process group."""
+    multiplies, ``bsmm``) and the training path (optimizer, data,
+    checkpoints, fault runner, compression, train step, driver) load no
+    jax and no ``repro`` module; importing the runtime, the analysis, the
+    server, the launch modules, the mesh's and the training path's modules
+    starts no CUDA context and no process group."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -247,6 +250,10 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.core import (blocksparse, bsmm, distributed,
                                       morton, spsumma)
         from repro_torch.launch import mesh, mesh_exec
+        from repro_torch import checkpoint, data, optim
+        from repro_torch.runtime import compression, fault
+        from repro_torch.launch import sharding, train
+        from repro_torch.kernels import block_attention_bwd
         assert not torch.cuda.is_initialized()
         assert not torch.distributed.is_initialized()
         import repro_torch
@@ -301,6 +308,23 @@ def test_port_imports_neither_jax_nor_repro():
         got = distributed.gather_dense(cb[None].numpy(), cr[None].numpy(),
                                        cc[None].numpy(), 16, 4)
         assert np.allclose(got, a @ a, atol=1e-4)
+        import tempfile
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.models import model as M
+        cfg = get_smoke_config("h2o_danube3_4b")
+        params = M.init_params(cfg, device="cpu")
+        opt = optim.adamw_init(params)
+        batch = data.SyntheticLM(cfg.vocab, 64, 2).batch_at(0)
+        batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+        step = sharding.TrainStep(cfg).step_fn()
+        params, opt, metrics = step(params, opt, batch)
+        assert int(opt.step) == 1 and bool(torch.isfinite(metrics["loss"]))
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save_checkpoint(d, 1, (1, (params, opt)))
+            (n, _), _ = checkpoint.load_checkpoint(d, 1, (0, (params, opt)))
+            assert int(n) == 1
+        q, s = compression.quantize_int8(params["embed"])
+        assert q.dtype == torch.int8 and fault.FaultInjector({}).schedule == []
         assert not torch.cuda.is_initialized()
         assert not torch.distributed.is_initialized()
         bad = [m for m in sys.modules
