@@ -95,9 +95,12 @@ train   — the training path (after mesh, before lm and its profiler).
              The backward kernel (``csrc/block_attention_bwd.cu``) against
              the plain backward (``ref.banded_attention_bwd_ref``) at hd
              16, 64, 120, 128 and 160, k and v with H or H/4 heads, causal
-             and bidirectional, float32 and bfloat16: dq, dk and dv element
-             by element by phase 2's rule, and the plain backward without
-             the softmax's row term rowsum(P dP) must miss it.  Then the
+             and bidirectional, float32 and bfloat16, each call on the
+             design its inputs select (bfloat16 with hd % 8 == 0 and hd <=
+             128: the tensor-core ``wgmma`` design, else ``fma``): dq, dk
+             and dv element by element by phase 2's rule, and the plain
+             backward without the softmax's row term rowsum(P dP) must
+             miss it.  Then the
              layer shape (32 x 8192 x 120 bf16, 8 kv heads, window 4096,
              seeded inputs): the same check one kv group at a time, the
              control on group 0, the kernel's time beside its bound (five
@@ -105,7 +108,9 @@ train   — the training path (after mesh, before lm and its profiler).
              must come to about 0.98 ms), the plain backward's and
              ``scaled_dot_product_attention``'s backward with the band as
              a boolean mask (``enable_gqa=True``; a yardstick the port
-             never calls).  (a) ``launch.sharding.TrainStep`` on
+             never calls), with the design and the registers and spills
+             ptxas gave the backward's kernels.  (a)
+             ``launch.sharding.TrainStep`` on
              ``h2o-danube3-4b`` at full width and depth, B = 1, S = 8192
              (the window path with block 1024), one repeated
              ``SyntheticLM`` batch: a warm-up step (learning rate 0 by the
@@ -115,7 +120,8 @@ train   — the training path (after mesh, before lm and its profiler).
              must fall from step 1 to step 3, every gradient norm be
              finite, and each step launch ``banded_attention`` 48 times on
              ``wgmma`` (the forward and the remat recompute of 24 layers)
-             and the backward 24 times; ``max_memory_allocated``.  (b)
+             and the backward 24 times on ``wgmma``;
+             ``max_memory_allocated``.  (b)
              ``launch.train.main`` on the card: the smoke config at S =
              128 (window 32, so the kernels run), 30 steps, a drill failure
              at step 12: one restart and a falling loss.
@@ -173,6 +179,13 @@ serve   — after lm, since a profiler session makes every later kernel
              minus the union of CUDA kernel, memcpy and memset intervals
              over the pass, CUDA activity only, the window opened and
              closed by a one-element add on the card).
+trace   — last before the report, for the same reason: one full-width
+             train step of phase train (a) (a fresh state, one untraced
+             warm-up step, then one step) under ``torch.profiler`` with
+             CUDA activity only: the step's seconds, the device's idle
+             share, and the device time of the kernels by name, the top
+             ones printed, grouped into the backward's grids, the
+             forward kernel, matrix products and the rest.
 4. report  — per phase the engine's wave stats and launch counts; per
              kernel its time on the card at the main path's largest wave
              (CUDA events), its bound (both terms: bytes over the HBM rate,
@@ -1272,7 +1285,7 @@ SERVE_TOL = {"multiply": 1e-4, "congruence": 1e-4, "sp2": 1e-3}
 TRACE_DIR = ROOT / "build" / "traces"
 
 
-def device_idle(torch, fn, name: str) -> tuple:
+def device_idle(torch, fn, name: str, top: bool = False) -> tuple:
     """Run ``fn()`` under ``torch.profiler`` with CUDA activity only (no
     CPU op is recorded, so the host, which sets the pace here, is slowed
     less) and return ``(fn(), idle)``.  After a session every kernel
@@ -1281,7 +1294,8 @@ def device_idle(torch, fn, name: str) -> tuple:
     one-element add on the card opens and closes the window: the device
     is idle at both, so they run as the host reaches them.  ``idle`` is
     one minus the union of the CUDA kernel, memcpy and memset intervals
-    over the window: the device's idle share of that run."""
+    over the window: the device's idle share of that run.  With ``top``,
+    ``idle["kernels_ms"]`` holds each kernel name's summed device ms."""
     from torch.profiler import ProfilerActivity, profile
     device = ("kernel", "gpu_memcpy", "gpu_memset")
     mark = torch.zeros(1, device="cuda")
@@ -1311,9 +1325,16 @@ def device_idle(torch, fn, name: str) -> tuple:
         if b > a:
             busy += b - a
             end = b
-    return out, {"idle_share": 1.0 - busy / (t1 - t0),
-                 "window_s": (t1 - t0) / 1e6, "device_busy_s": busy / 1e6,
-                 "device_events": kinds}
+    idle = {"idle_share": 1.0 - busy / (t1 - t0),
+            "window_s": (t1 - t0) / 1e6, "device_busy_s": busy / 1e6,
+            "device_events": kinds}
+    if top:
+        idle["kernels_ms"] = {}
+        for e in events:
+            if e["cat"] == "kernel":
+                idle["kernels_ms"][e["name"]] = \
+                    idle["kernels_ms"].get(e["name"], 0.0) + e["dur"] / 1e3
+    return out, idle
 
 
 def serve_operands(torch, n=SERVE_N) -> dict:
@@ -1929,9 +1950,10 @@ def bwd_case(torch, rng, h, h_kv, s, d, dtype):
 def check_attention_bwd_small(torch, ref) -> float:
     """The backward kernel against the plain backward at small shapes: hd
     16, 64, 120, 128, 160; k and v with H or H/4 heads; causal and
-    bidirectional; float32 and bfloat16.  Each of dq, dk, dv element by
-    element (:func:`check_elementwise`); the control must miss on the
-    first shape of each type."""
+    bidirectional; float32 and bfloat16, each call on the design its
+    inputs select.  Each of dq, dk, dv element by element
+    (:func:`check_elementwise`); the control must miss on the first shape
+    of each type."""
     from repro_torch.kernels import block_attention_bwd as kbb
     rng = np.random.default_rng(5)
     worst = 0.0
@@ -1943,9 +1965,16 @@ def check_attention_bwd_small(torch, ref) -> float:
                     (4, 1, 256, 128, 64), (8, 8, 130, 128, 32),
                     (6, 3, 257, 160, 192))):
                 q, k, v, do = bwd_case(torch, rng, h, h_kv, s, d, dtype)
+                design = kbb.design_for(q, k, v, do)
+                before = variant_counts()["block_attention_bwd"][design]
                 got = kbb.banded_attention_bwd(q, k, v, do, window=window,
                                                causal=causal)
                 torch.cuda.synchronize()
+                if variant_counts()["block_attention_bwd"][design] != \
+                        before + 1:
+                    raise AssertionError(f"banded_attention_bwd {dtype} "
+                                         f"D={d} did not launch the {design} "
+                                         f"design")
                 want = plain_bwd32(ref, q, k, v, do, window, causal)
                 what = (f"banded_attention_bwd {(h, h_kv, s, d)} "
                         f"window={window} causal={causal} {dtype}")
@@ -1955,7 +1984,7 @@ def check_attention_bwd_small(torch, ref) -> float:
                 worst = max(worst, *errs)
                 log(f"  banded_attention_bwd H={h} H_kv={h_kv} S={s:4d} "
                     f"D={d:3d} window={window:3d} causal={causal!s:5s} "
-                    f"{str(dtype):14s} max_abs_err dq/dk/dv "
+                    f"{str(dtype):14s} {design:5s} max_abs_err dq/dk/dv "
                     f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}")
                 if i == 0:
                     short = dq_without_row_term(torch, ref, q, k, v, do,
@@ -2021,7 +2050,7 @@ def time_attention_bwd(torch, ref) -> dict:
            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
            **bound_ms(n_bytes, flops, BF16_FLOPS), "max_abs_err": err,
            "bytes": n_bytes, "flops": flops, "band_pairs_per_head": pairs,
-           "launches_per_backward": 1,
+           "launches_per_backward": 1, "design": kbb.design_for(q, k, v, do),
            "shape": {"heads": h, "kv_heads": h_kv, "seq": s, "head_dim": d,
                      "window": window, "causal": True, "dtype": "bf16"}}
     res.update(rates(res))
@@ -2076,12 +2105,11 @@ class EventSpans:
         return sum(a.elapsed_time(b) for a, b in self.events.pop(name))
 
 
-def train_full_width(torch, ops, launches) -> dict:
-    """(a) ``TrainStep`` on ``h2o-danube3-4b`` at full width and depth,
-    B x S = TRAIN_SHAPE, one repeated ``SyntheticLM`` batch: a warm-up
-    step (learning rate 0), then TRAIN_STEPS measured steps whose loss
-    must fall and whose gradient norms must be finite, each launching the
-    forward kernel twice a layer and the backward kernel once."""
+def train_state(torch) -> tuple:
+    """The full-width train step of phase train (a) and its state: the
+    config, seeded parameters and AdamW moments on the card, the
+    ``SyntheticLM`` batch and the step function, after one warm-up step
+    (learning rate 0 by the schedule's warmup), with its seconds."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
     from repro_torch.launch.sharding import TrainStep
@@ -2091,8 +2119,6 @@ def train_full_width(torch, ops, launches) -> dict:
 
     cfg = get_config(LM_ARCH)
     b, s = TRAIN_SHAPE
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
                            device="cuda")
@@ -2109,6 +2135,20 @@ def train_full_width(torch, ops, launches) -> dict:
     params, opt, m = step(params, opt, batch)           # warm-up, lr 0
     torch.cuda.synchronize()
     out["warmup_s"] = time.perf_counter() - t0
+    return cfg, params, opt, batch, step, m, out
+
+
+def train_full_width(torch, ops, launches) -> dict:
+    """(a) ``TrainStep`` on ``h2o-danube3-4b`` at full width and depth,
+    B x S = TRAIN_SHAPE, one repeated ``SyntheticLM`` batch: a warm-up
+    step (learning rate 0), then TRAIN_STEPS measured steps whose loss
+    must fall and whose gradient norms must be finite, each launching the
+    forward kernel twice a layer and the backward kernel once, all on
+    the wgmma designs."""
+    b, s = TRAIN_SHAPE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, opt, batch, step, m, out = train_state(torch)
     log(f"  train (a) {cfg.name} B={b} S={s}: state {out['state_gb']:.2f} "
         f"GB, warm-up step {out['warmup_s']:.3f} s, loss "
         f"{float(m['loss']):.4f}, lr {float(m['lr'])}")
@@ -2149,16 +2189,18 @@ def train_full_width(torch, ops, launches) -> dict:
                              f"to step 3: {[r['loss'] for r in rows]}")
     want = {"block_attention": 2 * cfg.n_layers * TRAIN_STEPS,
             "block_attention_bwd": cfg.n_layers * TRAIN_STEPS}
-    if any(counts[k] != n for k, n in want.items()) or \
-            counts["block_attention"] != \
-            out["designs"]["block_attention"]["wgmma"]:
+    if any(counts[k] != n or out["designs"][k]["wgmma"] != n
+           for k, n in want.items()):
         raise AssertionError(f"train (a) launched {counts} "
                              f"({out['designs']}), not {want} on wgmma")
+    per_step = {k: v // TRAIN_STEPS
+                for k, v in out["designs"]["block_attention_bwd"].items()}
     log(f"  train (a): median step {out['step_s']:.3f} s, "
         f"{out['tokens_per_s']:.1f} tokens/s, max_memory_allocated "
         f"{out['peak_mem_gb']:.2f} GB; launches per step: block_attention "
         f"{counts['block_attention'] // TRAIN_STEPS}, block_attention_bwd "
-        f"{counts['block_attention_bwd'] // TRAIN_STEPS}")
+        f"{counts['block_attention_bwd'] // TRAIN_STEPS} (per design "
+        f"{per_step})")
     return out
 
 
@@ -2199,11 +2241,15 @@ def train_driver(torch, launches) -> dict:
             "launches": counts}
 
 
-def train_phase(torch, ops, ref, launches) -> dict:
+def train_phase(torch, ops, ref, launches, ptxas) -> dict:
+    """Phase train; ``ptxas`` is phase 1's summary of the backward's
+    build (registers, spills and notes per kernel), logged beside its
+    time."""
     out = {"kernel_small_max_abs_err": check_attention_bwd_small(torch,
                                                                   ref)}
     tm = time_attention_bwd(torch, ref)
-    log(f"    banded_attention_bwd: ms={tm['ms']:.4f} "
+    tm["ptxas"] = ptxas
+    log(f"    banded_attention_bwd: design={tm['design']} ms={tm['ms']:.4f} "
         f"plain_ms={tm['plain_ms']:.4f} library_ms={tm['library_ms']:.4f} "
         f"(sdpa backward, band mask, enable_gqa) "
         f"bound_ms={tm['bound_ms']:.4f} ({tm['bound_by']}; bytes "
@@ -2211,6 +2257,8 @@ def train_phase(torch, ops, ref, launches) -> dict:
         f"{tm['achieved_tflop_per_s']:.1f} TFLOP/s share_of_bound="
         f"{tm['share_of_bound']:.4f} max_abs_err={tm['max_abs_err']:.3g} "
         f"{tm['shape']}")
+    log("    its build (ptxas): " + ("\n      ".join([""] + ptxas) if ptxas
+                                     else "built before this run"))
     out["timing"] = {"banded_attention_bwd": tm}
     out["full_width"] = train_full_width(torch, ops, launches)
     out["driver"] = train_driver(torch, launches)
@@ -2515,6 +2563,62 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase trace: one full-width train step under the profiler
+# ---------------------------------------------------------------------------
+
+#: kernels of a train step by what they compute (the first match names a
+#: kernel's group; names are the CUDA kernels' own)
+STEP_GROUPS = (("banded_attention_bwd", ("attention_bwd_",)),
+               ("banded_attention", ("banded_attention",)),
+               ("matmul", ("gemm", "sm90_xmma", "cutlass", "nvjet")))
+TRACE_TOP = 15
+
+
+def train_trace(torch, launches) -> dict:
+    """Phase train (a)'s full-width step once more, on a fresh state,
+    under ``torch.profiler`` (CUDA activity only; :func:`device_idle`):
+    the step's seconds, the device's idle share and its kernels' device
+    time by name and group.  It runs after every timed phase, since a
+    profiler session slows every later launch of the process."""
+    b, s = TRAIN_SHAPE
+    cfg, params, opt, batch, step, _, out = train_state(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    (params, opt, m), idle = device_idle(
+        torch, lambda: step(params, opt, batch), "train_step", top=True)
+    out["traced_step_s"] = time.perf_counter() - t0
+    out["launches"] = dict(launches)
+    out["designs"] = variant_counts()
+    out["loss"] = float(m["loss"])
+    del params, opt, m
+    torch.cuda.empty_cache()
+    kernels = idle.pop("kernels_ms")
+    groups = {g: 0.0 for g, _ in STEP_GROUPS}
+    groups["other"] = 0.0
+    for name, ms in kernels.items():
+        g = next((g for g, keys in STEP_GROUPS
+                  if any(k in name for k in keys)), "other")
+        groups[g] += ms
+    busy_ms = sum(kernels.values())
+    out.update(idle=idle, groups_ms=groups, kernel_ms_total=busy_ms,
+               top=sorted(kernels.items(), key=lambda kv: -kv[1])[:TRACE_TOP])
+    if out["launches"]["block_attention_bwd"] != cfg.n_layers or \
+            out["designs"]["block_attention_bwd"]["wgmma"] != cfg.n_layers:
+        raise AssertionError(f"the traced step launched {out['launches']} "
+                             f"({out['designs']})")
+    log(f"  traced step B={b} S={s}: {out['traced_step_s']:.3f} s (warm-up "
+        f"{out['warmup_s']:.3f} s), loss {out['loss']:.4f}, device idle_share "
+        f"{idle['idle_share']:.4f} (window {idle['window_s']:.3f} s, busy "
+        f"{idle['device_busy_s']:.4f} s), kernels {busy_ms:.1f} ms")
+    for g, ms in groups.items():
+        log(f"    {g:22s} {ms:10.3f} ms  share {ms / busy_ms:.4f}")
+    for name, ms in out["top"]:
+        log(f"    {ms:10.3f} ms  {name[:150]}")
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: report
 # ---------------------------------------------------------------------------
 
@@ -2523,7 +2627,7 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 DESIGN = {"bsmm_pairs": "persistent-warp-streams-cp.async-3xtf32-mma",
           "batched_gemm": "persistent-cp.async-ring-fma",
           "banded_attention": "wgmma-tma-split-p",
-          "banded_attention_bwd": "two-grid-fma-recompute"}
+          "banded_attention_bwd": "wgmma-tma-dq-dv-dk-grids-split-p-ds"}
 
 #: the phase whose run gives each kernel's headline row
 HEADLINE = {"bsmm_pairs": "banded", "batched_gemm": "banded_gemm",
@@ -2560,9 +2664,12 @@ def ptxas_summary(text: str) -> list:
         m = re.search(r"Compiling entry function '\w*?(bsmm_pairs_kernel|"
                       r"batched_gemm_kernel|banded_attention_kernel|"
                       r"banded_attention_wgmma|attention_bwd_dq_kernel|"
-                      r"attention_bwd_dkv_kernel)I(\w*?)EE", ln)
+                      r"attention_bwd_dkv_kernel|attention_bwd_dq_wgmma|"
+                      r"attention_bwd_dkv_wgmma)I(\w*?)EE", ln)
         if m:
             args = re.findall(r"Li(\d+)E", m.group(2) + "E")
+            args += [("dv", "dk")[int(b)]
+                     for b in re.findall(r"Lb([01])E", m.group(2) + "E")]
             if "bfloat16" in m.group(2):
                 args.append("bf16")
             elif m.group(2).endswith("f"):
@@ -2574,7 +2681,8 @@ def ptxas_summary(text: str) -> list:
             lines.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
             name = None
         elif re.search(r"\(C7\d+\)|error|warning", ln):
-            sym = re.search(r"(banded_attention_wgmma)ILi(\d+)E", ln)
+            sym = re.search(r"(banded_attention_wgmma|attention_bwd_dq_wgmma|"
+                            r"attention_bwd_dkv_wgmma)ILi(\d+)E", ln)
             lines.append(re.sub(r" (in|for) (the )?function '\w+'",
                                 f" in {sym.group(1)}<{sym.group(2)}>"
                                 if sym else "", ln.strip()))
@@ -2609,9 +2717,9 @@ def main() -> int:
     log("phase 1: build")
     t0 = time.perf_counter()
     logs = _build.build()
-    for name, text in logs.items():
-        log(f"  nvcc {name}:\n" + "\n".join(
-            "    " + ln for ln in ptxas_summary(text)))
+    notes = {name: ptxas_summary(text) for name, text in logs.items()}
+    for name, lines in notes.items():
+        log(f"  nvcc {name}:\n" + "\n".join("    " + ln for ln in lines))
     for name in _build.KERNELS:
         _build.load(name)
     log(f"  build_s={time.perf_counter() - t0:.3f}")
@@ -2672,7 +2780,8 @@ def main() -> int:
     log("phase train: the training path at full width")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    phases["train"] = train_phase(torch, ops, ref, _build.LAUNCHES)
+    phases["train"] = train_phase(torch, ops, ref, _build.LAUNCHES,
+                                  notes.get("block_attention_bwd", []))
     worst["banded_attention_bwd"] = phases["train"][
         "kernel_small_max_abs_err"]
     total = {k: total.get(k, 0) + phases["train"]["launches"][k]
@@ -2700,6 +2809,14 @@ def main() -> int:
     total["bsmm_pairs"] += serve["launches"]["bsmm_pairs"]
     log(f"  serve_s={serve['serve_s']:.3f} launches={total}")
 
+    log("phase trace: one full-width train step under torch.profiler")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    trace = train_trace(torch, _build.LAUNCHES)
+    trace["trace_s"] = time.perf_counter() - t0
+    total = {k: total[k] + trace["launches"][k] for k in _build.KERNELS}
+    log(f"  trace_s={trace['trace_s']:.3f} launches={total}")
+
     log("phase 4: report")
     rows = kernel_rows(phases, total, worst)
     elapsed = time.perf_counter() - t_start
@@ -2708,7 +2825,7 @@ def main() -> int:
     log("record: " + json.dumps({"card": card, "phases": phases,
                                  "bs8_wave": bs8, "sim": sim,
                                  "solvers": solvers, "mesh": mesh,
-                                 "serve": serve,
+                                 "serve": serve, "trace": trace,
                                  "smoke_s": elapsed}))
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}

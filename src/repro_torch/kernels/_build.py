@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``build/kernels/`` at the repository root (a directory ``.gitignore``
 lists) and loaded with :mod:`ctypes`.  The library's file name carries a
-hash of the source and the flags, so an edited source is rebuilt and a
-stale library is never loaded.  Nothing is compiled at import time.
+hash of the source, of every header under ``csrc/`` (``*.cuh``, which the
+sources include) and of the flags, so an edited source or header is
+rebuilt and a stale library is never loaded.  Nothing is compiled at import time.
 
 :data:`LAUNCHES` counts kernel launches per kernel; each wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -30,7 +31,8 @@ LAUNCHES: dict[str, int] = {"bsmm_pairs": 0, "batched_gemm": 0,
 #: kernel name -> design -> launches so far, for kernels with several designs
 VARIANT_LAUNCHES: dict[str, dict[str, int]] = {
     "bsmm_pairs": {"fma": 0, "mma": 0},
-    "block_attention": {"fma": 0, "wgmma": 0}}
+    "block_attention": {"fma": 0, "wgmma": 0},
+    "block_attention_bwd": {"fma": 0, "wgmma": 0}}
 
 #: kernels of this package, each one ``csrc/<name>.cu``
 KERNELS = tuple(LAUNCHES)
@@ -70,8 +72,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> pathlib.Path:
-    src = source_of(name)
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(source_of(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 

@@ -502,22 +502,31 @@ def test_lm_prefill_runs_through_the_kernel(cuda_device, batch):
 @pytest.mark.parametrize("h,h_kv,s,d,window", [
     (8, 2, 200, 120, 64),      # the LM's GQA and hd; S a multiple of no tile
     (4, 4, 130, 160, 32),      # hd 160: the 32-row tiles; no groups
+    (8, 2, 257, 120, 32),      # G 4; S = 2 * 128 + 1; window under a tile
+    (4, 4, 257, 128, 64),      # hd 128, G 1; window one tile
+    (4, 1, 200, 128, 32),      # hd 128, G 4
+    (2, 2, 200, 120, 256),     # window >= S: every key in the band
 ])
 def test_banded_attention_backward_matches_plain_version(
         cuda_device, dtype, causal, h, h_kv, s, d, window):
     """dq, dk and dv of the backward kernel, each element against the
     plain backward's float32 result on the same inputs (:func:`_within`);
-    the plain backward without the ``rowsum(P dP)`` term must miss it."""
+    the plain backward without the ``rowsum(P dP)`` term must miss it.
+    bf16 with hd <= 128 runs the ``wgmma`` design, the rest ``fma``."""
     from repro_torch.kernels import block_attention_bwd as kbb
     rng = np.random.default_rng(s + d)
     q, do = (torch.tensor(rng.standard_normal((h, s, d)), dtype=dtype,
                           device=cuda_device) for _ in range(2))
     k, v = (torch.tensor(rng.standard_normal((h_kv, s, d)), dtype=dtype,
                          device=cuda_device) for _ in range(2))
+    design = "wgmma" if dtype == torch.bfloat16 and d <= 128 else "fma"
     before = ops.LAUNCHES["block_attention_bwd"]
+    per_design = dict(ops.VARIANT_LAUNCHES["block_attention_bwd"])
     got = kbb.banded_attention_bwd(q, k, v, do, window=window, causal=causal)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["block_attention_bwd"] == before + 1
+    per_design[design] += 1
+    assert ops.VARIANT_LAUNCHES["block_attention_bwd"] == per_design
     want = ref.banded_attention_bwd_ref(q.float(), k.float(), v.float(),
                                         do.float(), window, causal=causal)
     for a, w in zip(got, want):
@@ -556,6 +565,10 @@ def test_lm_backward_launches_the_kernel_once_per_layer(cuda_device):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["block_attention"] == 2 * cfg.n_layers
     assert ops.LAUNCHES["block_attention_bwd"] == cfg.n_layers
+    # the smoke config is float32 (hd 16): every backward on the fma design
+    assert cfg.torch_dtype == torch.float32
+    assert ops.VARIANT_LAUNCHES["block_attention_bwd"] == {
+        "fma": cfg.n_layers, "wgmma": 0}
     assert all(bool(torch.isfinite(w.grad).all())
                for w in params["layers"].values())
 

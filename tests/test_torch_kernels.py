@@ -213,6 +213,120 @@ class TestBsmmPairsDesigns:
         assert all(v == 0 for v in ops.VARIANT_LAUNCHES["bsmm_pairs"].values())
 
 
+class TestBandedAttentionBwdDesigns:
+    @pytest.mark.parametrize("dtype,d,design", [
+        (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+        (torch.bfloat16, 64, "wgmma"), (torch.float32, 120, "fma"),
+        (torch.bfloat16, 122, "fma"), (torch.bfloat16, 160, "fma")])
+    def test_design_for_type_and_head_dim(self, dtype, d, design):
+        """Tensor cores for bf16 heads that fill whole 8-column steps and
+        at most two 64-column boxes; the FMA design for the rest."""
+        q = torch.zeros((4, 16, d), dtype=dtype)
+        kv = torch.zeros((2, 16, d), dtype=dtype)
+        assert kbb.design_for(q, kv, kv) == design
+        assert kbb.design_for(q, kv, kv, q) == design
+
+    def test_design_for_an_unaligned_view(self):
+        """A base off the 16-byte grid (which TMA's tensor maps refuse)
+        goes to the FMA design."""
+        buf = torch.zeros(4 * 16 * 120 + 1, dtype=torch.bfloat16)
+        q = buf[1:].view(4, 16, 120)
+        kv = torch.zeros((2, 16, 120), dtype=torch.bfloat16)
+        assert q.data_ptr() % 16 and kbb.design_for(q, kv, kv) == "fma"
+
+    def test_launches_are_counted_per_design(self):
+        assert tuple(ops.VARIANT_LAUNCHES["block_attention_bwd"]) \
+            == kbb.DESIGNS
+        _build.VARIANT_LAUNCHES["block_attention_bwd"]["wgmma"] += 2
+        _build.VARIANT_LAUNCHES["block_attention_bwd"]["fma"] += 1
+        _build.reset_launches()
+        assert all(v == 0 for v in
+                   ops.VARIANT_LAUNCHES["block_attention_bwd"].values())
+
+
+def _within_bf16(got, want32) -> float:
+    """The largest excess of |got - want32| over the smoke's bf16 rule
+    (2**-8 |want| + 1e-3 rms(want)); <= 0 where every element meets it."""
+    rms = want32.pow(2).mean().sqrt()
+    return float(((got.float() - want32).abs()
+                  - (2 ** -8 * want32.abs() + 1e-3 * rms)).max())
+
+
+class TestBwdFragmentRounding:
+    """Why the tensor-core backward (``csrc/block_attention_bwd.cu``,
+    ``wgmma``) splits P and dS: a plain emulation, on the CPU, of its
+    arithmetic on the smoke's first small shape (H 8, H_kv 2, S 300, D 64,
+    window 128, bf16 inputs).  Scores, the softmax, dP and dS are float32;
+    P and dS are rounded to bf16 before ``P^T do``, ``dS^T q`` and
+    ``dS k`` (the A operands of the tensor cores), once (``single``) or as
+    ``hi + lo`` with ``hi = bf16(x)``, ``lo = bf16(x - hi)`` (``split``);
+    the products sum in float32 and each gradient is rounded to bf16 once.
+    Against the plain float32 backward, the split meets the smoke's bf16
+    rule on dq, dk and dv; a single rounding misses it on each."""
+
+    @staticmethod
+    def _emulate(q, k, v, do, window, causal, rounding):
+        h, s, d = q.shape
+        g = h // k.shape[0]
+        q32, k32, v32, do32 = (t.float() for t in (q, k, v, do))
+        ke, ve = (t.repeat_interleave(g, 0) for t in (k32, v32))
+        scores = torch.einsum("hqd,hkd->hqk", q32, ke) / d ** 0.5
+        mask = ref.band_mask(s, window, causal)
+        p = torch.softmax(scores.masked_fill(~mask, float("-inf")), -1)
+        dp = torch.einsum("hqd,hkd->hqk", do32, ve)
+        ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+
+        def operand(x):
+            hi = x.to(torch.bfloat16).float()
+            if rounding == "single":
+                return hi
+            return hi + (x - hi).to(torch.bfloat16).float()
+
+        pr, dsr = operand(p), operand(ds)
+        dq = torch.einsum("hqk,hkd->hqd", dsr, ke) / d ** 0.5
+        dk = torch.einsum("hqk,hqd->hkd", dsr, q32).reshape(
+            -1, g, s, d).sum(1) / d ** 0.5
+        dv = torch.einsum("hqk,hqd->hkd", pr, do32).reshape(
+            -1, g, s, d).sum(1)
+        return [t.to(torch.bfloat16) for t in (dq, dk, dv)]
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_split_meets_and_single_rounding_misses(self, causal):
+        rng = np.random.default_rng(5)
+        h, h_kv, s, d, window = 8, 2, 300, 64, 128
+        q, do = (torch.tensor(rng.standard_normal((h, s, d)),
+                              dtype=torch.bfloat16) for _ in range(2))
+        k, v = (torch.tensor(rng.standard_normal((h_kv, s, d)),
+                             dtype=torch.bfloat16) for _ in range(2))
+        want = ref.banded_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                            do.float(), window, causal=causal)
+        split = self._emulate(q, k, v, do, window, causal, "split")
+        single = self._emulate(q, k, v, do, window, causal, "single")
+        for name, a, b, w in zip(("dq", "dk", "dv"), split, single, want):
+            assert _within_bf16(a, w) <= 0, name
+            assert _within_bf16(b, w) > 0, name
+
+
+class TestBuildHash:
+    def test_a_header_edit_renames_the_library(self, tmp_path, monkeypatch):
+        """The library's name hashes the headers under csrc/ as well as the
+        source, so an edited header is rebuilt, never loaded stale."""
+        import shutil
+        csrc = tmp_path / "csrc"
+        shutil.copytree(_build.CSRC, csrc)
+        monkeypatch.setattr(_build, "CSRC", csrc)
+        headers = sorted(csrc.glob("*.cuh"))
+        assert headers
+        names = {k: _build._lib_path(k).name for k in _build.KERNELS}
+        headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+        after = {k: _build._lib_path(k).name for k in _build.KERNELS}
+        assert all(after[k] != names[k] for k in _build.KERNELS)
+        src = _build.source_of("block_attention_bwd")
+        src.write_text(src.read_text() + "\n// edited\n")
+        assert _build._lib_path("block_attention_bwd").name \
+            != after["block_attention_bwd"]
+
+
 class TestDispatch:
     def test_plain_versions_on_cpu_match_ref(self):
         ab, bb, sa, sb, seg = _pairs_case(5, 6, 3, 9, 8)
