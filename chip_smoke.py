@@ -125,6 +125,33 @@ train   — the training path (after mesh, before lm and its profiler).
              ``launch.train.main`` on the card: the smoke config at S =
              128 (window 32, so the kernels run), 30 steps, a drill failure
              at step 12: one restart and a falling loss.
+families — the MoE, SSM and hybrid architectures (after train, before lm
+             and every profiler session).  (a) The smoke configs of
+             phi3.5-moe, mixtral-8x7b, falcon-mamba-7b and zamba2-2.7b: a
+             2 x 64 prefill on the card against the CPU, logits within
+             1e-4, aux within 1e-5; mixtral's (window 32) launches
+             ``banded_attention`` once a layer.  (b) mixtral-8x7b and
+             phi3.5-moe at full width and 16 of their 32 layers (whole,
+             their bf16 weights do not fit the card), seeded: a prefill of
+             1 x 8192 tokens (finite logits; mixtral, window 4096, launches
+             ``banded_attention`` once a layer on ``wgmma``) with the MoE
+             FFN's CUDA-event share, then ``lm_serve.generate`` at batch 4,
+             prompt 32, gen 16; ``max_memory_allocated``.  (c) mixtral's
+             layer 0 on 512 seeded bf16 tokens: ``moe_ffn`` on the card
+             against the CPU's in float32 on the same values; the chosen
+             experts agree but at near-ties (counted), the agreeing tokens'
+             outputs pass ``check_moe_rows`` (2**-7 |want| + 2**-4
+             rms(want): the FFN rounds to bf16 between its products), which
+             the card's layer with its capacity cut (pairs dropped on the
+             card only) must miss.  (d) falcon-mamba-7b and zamba2-2.7b at
+             full width and depth: the same prefill and generate, with the
+             chunked scans' share of the prefill; layer 0's mixer in
+             float32 at S = 512 on the card against the CPU, and
+             ``mamba1_step`` over 64 tokens against ``mamba1_forward`` on
+             the card.  (e) ``TrainStep`` on mixtral-8x7b at full width, 2
+             layers, B = 1, S = 8192: a warm-up step, then one step with a
+             finite loss and gradient norm, launching ``banded_attention``
+             4 times and its backward twice, all on ``wgmma``.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -2563,6 +2590,399 @@ def lm_phase(torch, ops, ref, launches) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase families: the MoE, SSM and hybrid architectures at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("phi3_5_moe", "mixtral_8x7b", "falcon_mamba_7b",
+                "zamba2_2_7b")
+#: serving depth per arch (None: the published depth).  The MoE stacks
+#: serve at 16 of their 32 layers: whole, mixtral's bf16 weights are 93.1
+#: GB, over the card's 80 GB, and phi3.5-moe's 83.5 GB leave no room for
+#: the prefill.  falcon-mamba-7b (14.0 GB) and zamba2-2.7b (4.7 GB) fit.
+FAMILY_SERVE_LAYERS = {"mixtral_8x7b": 16, "phi3_5_moe": 16,
+                       "falcon_mamba_7b": None, "zamba2_2_7b": None}
+#: prefill (batch, tokens): past mixtral's 4096-token window
+FAMILY_PREFILL = (1, 8192)
+#: tokens of the full-width MoE layer held against the CPU, and a near-tie
+#: of the router (the k-th and (k+1)-th probabilities closer than this)
+MOE_LAYER_TOKENS = 512
+NEAR_TIE = 1e-6
+#: the must-fail control's capacity factor: cap 80 for 512 tokens top-2 of
+#: 8 experts, below the 128 pairs an expert gets on average
+MOE_CUT_CAPACITY = 0.5
+#: the full-width mamba layers held against the CPU (tokens), and the
+#: tokens of mamba1_step held against mamba1_forward on the card
+SSM_LAYER_S = 512
+SSM_STEP_TOKENS = 64
+#: the mixtral train step: layers, (batch, tokens).  A layer is 1.45e9
+#: parameters; at 2 layers the bf16 weights and gradients take 12.1 GB and
+#: the float32 AdamW moments 24.3 GB
+FAMILY_TRAIN = (2, (1, 8192))
+
+
+def to_device(tree: dict, device) -> dict:
+    return {k: to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
+
+
+def families_smoke(torch, launches) -> dict:
+    """(a) Each family's smoke config: a prefill of 2 x 64 tokens on the
+    card against the same prefill on the CPU, logits within 1e-4 and the
+    aux loss within 1e-5; mixtral's (window 32 < 64) launches
+    ``banded_attention`` once a layer, the others never."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    out = {}
+    for arch in FAMILY_ARCHS:
+        cfg = get_smoke_config(arch)
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        toks = torch.tensor(np.random.default_rng(2).integers(
+            0, cfg.vocab, (2, 64)))
+        with torch.inference_mode():
+            want, want_aux = M.forward(cfg, p_cpu, {"tokens": toks})
+            reset_counts()
+            got, aux = M.forward(cfg, to_device(p_cpu, "cuda"),
+                                 {"tokens": toks.cuda()})
+            torch.cuda.synchronize()
+        counts = dict(launches)
+        err = float((got.cpu() - want).abs().max())
+        aux_err = abs(float(aux) - float(want_aux))
+        windowed = bool(cfg.swa_window) and cfg.swa_window < 64
+        if not (err <= 1e-4 and aux_err <= 1e-5) or \
+                counts["block_attention"] != (cfg.n_layers if windowed
+                                              else 0):
+            raise AssertionError(f"families (a) {arch}: card vs CPU max abs "
+                                 f"err {err}, aux err {aux_err}, launches "
+                                 f"{counts}")
+        out[arch] = {"max_abs_err": err, "aux_err": aux_err,
+                     "launches": counts}
+        log(f"  (a) {arch} smoke prefill 2 x 64: card vs CPU max abs err "
+            f"{err:.3g}, aux err {aux_err:.3g}, block_attention launches "
+            f"{counts['block_attention']}")
+    return out
+
+
+def serve_family(torch, launches, arch) -> tuple:
+    """(b), (d) One arch at full width (depth ``FAMILY_SERVE_LAYERS``),
+    seeded weights on the card: a prefill of FAMILY_PREFILL tokens (after
+    an uncounted warm-up at a quarter of them) whose logits must be
+    finite, with the MoE FFN's and the scans' shares of it (CUDA events
+    around ``moe_ffn_batched``, ``mamba1_scan`` and ``mamba2_scan``);
+    mixtral's must launch ``banded_attention`` once a layer on ``wgmma``,
+    the others never; then ``lm_serve.generate`` at LM_SERVE, every token
+    in [0, vocab).  Returns the record and a copy of layer 0's weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import lm_serve
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import ssm
+
+    cfg = get_config(arch)
+    if FAMILY_SERVE_LAYERS[arch]:
+        cfg = cfg.scaled(n_layers=FAMILY_SERVE_LAYERS[arch])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator("cuda").manual_seed(0)
+    params = M.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    rec = {"layers": cfg.n_layers, "init_s": time.perf_counter() - t0,
+           "params": sum(w.numel() for v in params.values() for w in (
+               v.values() if isinstance(v, dict) else [v])),
+           "state_gb": torch.cuda.memory_allocated() / 1e9}
+    b, s = FAMILY_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                           device="cuda")
+    windowed = bool(cfg.swa_window) and cfg.swa_window < s
+    with torch.inference_mode():
+        M.forward(cfg, params, {"tokens": tokens[:, :s // 4]})   # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        with EventSpans(torch, L, ("moe_ffn_batched",)) as moe, \
+                EventSpans(torch, ssm, ("mamba1_scan", "mamba2_scan")) as sc:
+            t0 = time.perf_counter()
+            logits, _ = M.forward(cfg, params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+        counts, designs = dict(launches), variant_counts()["block_attention"]
+        if logits.shape != (b, s, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"families {arch}: prefill logits "
+                                 f"{tuple(logits.shape)} not finite or of "
+                                 f"the wrong shape")
+        del logits
+        want = cfg.n_layers if windowed else 0
+        if counts["block_attention"] != want or designs["wgmma"] != want:
+            raise AssertionError(f"families {arch}: the prefill launched "
+                                 f"{counts} ({designs}), not {want} "
+                                 f"banded_attention on wgmma")
+        moe_ms = moe.ms("moe_ffn_batched")
+        scan_ms = sc.ms("mamba1_scan") + sc.ms("mamba2_scan")
+    rec["prefill"] = {"batch": b, "tokens": s, "seconds": prefill_s,
+                      "tokens_per_s": b * s / prefill_s,
+                      "moe_ms": moe_ms, "moe_share": moe_ms / 1e3 / prefill_s,
+                      "scan_ms": scan_ms,
+                      "scan_share": scan_ms / 1e3 / prefill_s,
+                      "launches": counts, "attention_designs": designs,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    log(f"  {arch} ({cfg.n_layers} layers, {rec['params'] / 1e9:.3f} B "
+        f"parameters, {rec['state_gb']:.2f} GB, init {rec['init_s']:.2f} s): "
+        f"prefill {b} x {s} {prefill_s:.3f} s "
+        f"({b * s / prefill_s:.1f} tokens/s), moe_ffn_batched {moe_ms:.1f} ms "
+        f"(share {rec['prefill']['moe_share']:.3f}), scan {scan_ms:.1f} ms "
+        f"(share {rec['prefill']['scan_share']:.3f}), banded_attention "
+        f"{designs}, max_memory_allocated "
+        f"{rec['prefill']['peak_mem_gb']:.2f} GB")
+
+    bs, plen, n_gen = LM_SERVE
+    prompts = np.random.default_rng(3).integers(
+        0, cfg.vocab, (bs, plen)).astype(np.int32)
+    lm_serve.generate(cfg, params, prompts[:, :2], 2, 4)      # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_out = lm_serve.generate(cfg, params, prompts, n_gen, plen + n_gen)
+    serve_s = time.perf_counter() - t0
+    if toks_out.shape != (bs, n_gen) or not ((toks_out >= 0).all()
+                                             and (toks_out < cfg.vocab).all()):
+        raise AssertionError(f"families {arch}: generate gave "
+                             f"{toks_out.shape} tokens outside "
+                             f"[0, {cfg.vocab})")
+    rec["serve"] = {"batch": bs, "prompt": plen, "gen": n_gen,
+                    "seconds": serve_s, "tokens_per_s": bs * n_gen / serve_s,
+                    "steps_per_s": (plen + n_gen - 1) / serve_s,
+                    "launches": dict(launches),
+                    "sample": toks_out[0].tolist()}
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"    generate batch {bs} prompt {plen} gen {n_gen}: {serve_s:.3f} s, "
+        f"{bs * n_gen / serve_s:.1f} tokens/s, "
+        f"{(plen + n_gen - 1) / serve_s:.1f} steps/s; max_memory_allocated "
+        f"{rec['peak_mem_gb']:.2f} GB")
+    first = (0, 0) if cfg.family == "hybrid" else (0,)
+    layer0 = {k: w[first].clone() for k, w in params["layers"].items()}
+    del params
+    torch.cuda.empty_cache()
+    rec["launches"] = {k: counts[k] + rec["serve"]["launches"][k]
+                       for k in counts}
+    return cfg, rec, layer0
+
+
+def check_moe_rows(torch, what, got, want32) -> float:
+    """A bf16 MoE FFN's output against the plain float32 result on the same
+    bf16 values, each element: |got - want32| <= 2**-7 |want32| + 2**-4
+    rms(want32).  The FFN rounds to bf16 between its products (the gate
+    and up projections, silu, their product, the down projection, the
+    gate weighting and the sum over k), so it cannot meet the single
+    rounding of :func:`check_elementwise`'s bf16 rule: the intermediates'
+    roundings, summed over the hidden units, reach 0.020-0.027 rms(want)
+    in a CPU emulation (512 x 1024 x 3584, bf16 against float32); the
+    output's own roundings take 2**-7 |want|.  A pair dropped on one side
+    moves its token by about 4.6 rms."""
+    diff = (got.float() - want32).abs()
+    rms = float(want32.pow(2).mean().sqrt())
+    excess = (diff - 2 ** -7 * want32.abs() - 2 ** -4 * rms).flatten()
+    i = int(excess.argmax())
+    if float(excess[i]) > 0:
+        raise AssertionError(
+            f"{what}: |got - want| {float(diff.flatten()[i]):.4g} past "
+            f"2**-7 |want| + 2**-4 rms(want) (rms {rms:.4g}) at flat index "
+            f"{i}; max abs err {float(diff.max()):.4g}")
+    return float(diff.max())
+
+
+def check_moe_layer(torch, cfg, lp) -> dict:
+    """(c) One full-width MoE layer (``lp``: layer 0's weights, bf16) on
+    MOE_LAYER_TOKENS seeded bf16 tokens: ``moe_ffn`` on the card against
+    ``moe_ffn`` on the CPU on the same values in float32.  The experts each
+    token chooses (``moe_route``) must agree except at near-ties (counted,
+    logged); the outputs of agreeing tokens must pass
+    :func:`check_moe_rows`, which the card's layer with its capacity cut to
+    MOE_CUT_CAPACITY (pairs dropped on the card only) must miss."""
+    from repro_torch.models import layers as L
+    x = torch.randn((MOE_LAYER_TOKENS, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(5)
+                    ).to(torch.bfloat16)
+    w = [lp[k] for k in ("router", "w_gate", "w_up", "w_down")]
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.moe_capacity_factor)
+    with torch.inference_mode():
+        got, aux = L.moe_ffn(x, *w, **kw)
+        _, _, idx = L.moe_route(x, w[0], cfg.top_k)
+        cut, _ = L.moe_ffn(x, *w, top_k=cfg.top_k,
+                           capacity_factor=MOE_CUT_CAPACITY)
+        x32, w32 = x.float().cpu(), [t.float().cpu() for t in w]
+        t0 = time.perf_counter()
+        want, want_aux = L.moe_ffn(x32, *w32, **kw)
+        cpu_s = time.perf_counter() - t0
+        probs, _, idx32 = L.moe_route(x32, w32[0], cfg.top_k)
+    top = probs.topk(cfg.top_k + 1, dim=-1).values
+    near = (top[:, -2] - top[:, -1]) < NEAR_TIE
+    agree = (idx.sort(-1).values.cpu() == idx32.sort(-1).values).all(-1)
+    if (~agree & ~near).any():
+        raise AssertionError(f"families (c): the card and the CPU route "
+                             f"{int((~agree & ~near).sum())} tokens to other "
+                             f"experts away from a near-tie")
+    what = f"moe_ffn {cfg.name} layer 0, {MOE_LAYER_TOKENS} tokens"
+    err = check_moe_rows(torch, what, got.cpu()[agree], want[agree])
+    try:
+        check_moe_rows(torch, what + " (control)", cut.cpu()[agree],
+                       want[agree])
+    except AssertionError as e:
+        control = str(e)
+    else:
+        raise AssertionError(f"{what}: its capacity cut to "
+                             f"{MOE_CUT_CAPACITY} passes the check: the "
+                             f"tolerance is too loose")
+    out = {"tokens": MOE_LAYER_TOKENS, "max_abs_err": err,
+           "near_ties": int(near.sum()), "disagreeing": int((~agree).sum()),
+           "aux": float(aux), "cpu_aux": float(want_aux), "cpu_s": cpu_s,
+           "control": control}
+    log(f"  (c) {what}: max abs err {err:.4g} (rms "
+        f"{float(want.pow(2).mean().sqrt()):.4g}), near-ties "
+        f"{out['near_ties']}, tokens routed otherwise {out['disagreeing']}, "
+        f"aux {out['aux']:.6f} (CPU {out['cpu_aux']:.6f}); the control "
+        f"misses: {control}")
+    return out
+
+
+def check_ssm_layer(torch, cfg, lp) -> dict:
+    """(d) One full-width mamba layer (``lp``: layer 0's weights, cast to
+    float32): the mixer's forward on SSM_LAYER_S seeded tokens on the card
+    against the CPU (float32 sums in other orders: the element rule of
+    :func:`check_elementwise` and 1e-5 relative Frobenius).  For mamba1,
+    also ``mamba1_step`` over SSM_STEP_TOKENS tokens against
+    ``mamba1_forward`` on them, on the card, by the same rule."""
+    from repro_torch.models import ssm
+    lp = {k: w.float() for k, w in lp.items()}
+    u = torch.randn((1, SSM_LAYER_S, cfg.d_model), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(6))
+    if cfg.mixer == "mamba1":
+        fwd, kw = ssm.mamba1_forward, dict(state=cfg.ssm_state)
+    else:
+        fwd = ssm.mamba2_forward
+        kw = dict(state=cfg.ssm_state, head_dim=cfg.ssm_head_dim)
+
+    def held(what, got, want):
+        err = check_elementwise(torch, what, got, want, torch.float32)
+        rel = float((got - want).norm() / want.norm())
+        if not rel <= 1e-5:
+            raise AssertionError(f"{what}: relative error {rel:.3g}")
+        return {"max_abs_err": err, "rel_err": rel,
+                "rms": float(want.pow(2).mean().sqrt())}
+
+    with torch.inference_mode():
+        got = fwd(lp, u, **kw)
+        want = fwd(to_device(lp, "cpu"), u.cpu(), **kw)
+        out = {"layer": held(f"{cfg.mixer} layer 0 of {cfg.name}, S = "
+                             f"{SSM_LAYER_S}", got.cpu(), want)}
+        if cfg.mixer == "mamba1":
+            un = u[:, :SSM_STEP_TOKENS]
+            st = ssm.MambaState(
+                torch.zeros((1, cfg.d_conv - 1, cfg.d_inner), device="cuda"),
+                torch.zeros((1, cfg.d_inner, cfg.ssm_state), device="cuda"))
+            ys = []
+            for t in range(SSM_STEP_TOKENS):
+                y, st = ssm.mamba1_step(lp, un[:, t], st, **kw)
+                ys.append(y)
+            out["step"] = held(f"mamba1_step x {SSM_STEP_TOKENS} vs "
+                               f"mamba1_forward", torch.stack(ys, 1),
+                               fwd(lp, un, **kw))
+    log(f"  (d) {cfg.mixer} layer of {cfg.name} in float32: card vs CPU "
+        f"{out['layer']}" + (f"; mamba1_step vs mamba1_forward on the card "
+                             f"{out['step']}" if "step" in out else ""))
+    return out
+
+
+def family_train(torch, ops, launches) -> dict:
+    """(e) ``TrainStep`` on mixtral-8x7b at full width, FAMILY_TRAIN's
+    depth and shape, one ``SyntheticLM`` batch: a warm-up step (learning
+    rate 0), then one step whose loss and gradient norm must be finite and
+    which launches ``banded_attention`` twice a layer (the forward and its
+    remat recompute) and its backward once a layer, all on ``wgmma``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+
+    layers, (b, s) = FAMILY_TRAIN
+    cfg = get_config("mixtral_8x7b").scaled(n_layers=layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    out = {"layers": layers, "batch": b, "tokens": s,
+           "state_gb": torch.cuda.memory_allocated() / 1e9}
+    batch = {k: torch.as_tensor(x, device="cuda") for k, x in
+             SyntheticLM(cfg.vocab, s, b, seed=0).batch_at(0).items()}
+    step = TrainStep(cfg, peak_lr=3e-4, warmup=1, total_steps=3).step_fn(
+        ShapeSpec("train_8k", "train", s, b))
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, batch)           # warm-up, lr 0
+    torch.cuda.synchronize()
+    out["warmup_s"] = time.perf_counter() - t0
+    reset_counts()
+    with EventSpans(torch, ops, ("_banded_bwd_kernel",
+                                 "_banded_attention_kernel")) as ev:
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["bwd_kernel_ms"] = ev.ms("_banded_bwd_kernel")
+        out["fwd_kernel_ms"] = ev.ms("_banded_attention_kernel")
+    out.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+               aux=float(m["aux"]), tokens_per_s=b * s / out["step_s"],
+               launches=dict(launches), designs=variant_counts(),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del params, opt, m
+    torch.cuda.empty_cache()
+    if not (np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"])):
+        raise AssertionError(f"families (e): loss {out['loss']}, grad norm "
+                             f"{out['grad_norm']}")
+    want = {"block_attention": 2 * layers, "block_attention_bwd": layers}
+    if any(out["launches"][k] != n or out["designs"][k]["wgmma"] != n
+           for k, n in want.items()):
+        raise AssertionError(f"families (e) launched {out['launches']} "
+                             f"({out['designs']}), not {want} on wgmma")
+    log(f"  (e) {cfg.name} train step, {layers} layers, B={b} S={s}: state "
+        f"{out['state_gb']:.2f} GB, warm-up {out['warmup_s']:.3f} s, step "
+        f"{out['step_s']:.3f} s ({out['tokens_per_s']:.1f} tokens/s), loss "
+        f"{out['loss']:.4f} (aux {out['aux']:.4f}), grad_norm "
+        f"{out['grad_norm']:.4f}, banded_attention {out['fwd_kernel_ms']:.1f} "
+        f"ms, its backward {out['bwd_kernel_ms']:.1f} ms, launches "
+        f"{ {k: out['launches'][k] for k in want} }, max_memory_allocated "
+        f"{out['peak_mem_gb']:.2f} GB")
+    return out
+
+
+def families_phase(torch, ops, launches) -> dict:
+    """Phase families: (a) the smoke configs card against CPU; (b) the MoE
+    configs served at full width with (c) mixtral's layer 0 held against
+    the CPU; (d) the SSM and hybrid configs served at full width and depth
+    with a mamba layer of each held against the CPU; (e) a full-width
+    mixtral train step."""
+    out = {"smoke": families_smoke(torch, launches), "serve": {}}
+    parts = [out["smoke"][a]["launches"] for a in FAMILY_ARCHS]
+    for arch in FAMILY_ARCHS:
+        cfg, rec, layer0 = serve_family(torch, launches, arch)
+        out["serve"][arch] = rec
+        parts.append(rec["launches"])
+        if arch == "mixtral_8x7b":
+            out["moe_layer"] = check_moe_layer(torch, cfg, layer0)
+        elif cfg.mixer != "attention":
+            out[f"{cfg.mixer}_layer"] = check_ssm_layer(torch, cfg, layer0)
+        del layer0
+    out["train"] = family_train(torch, ops, launches)
+    parts.append(out["train"]["launches"])
+    out["launches"] = {k: sum(p[k] for p in parts) for k in launches}
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase trace: one full-width train step under the profiler
 # ---------------------------------------------------------------------------
 
@@ -2788,6 +3208,14 @@ def main() -> int:
              for k in _build.KERNELS}
     log(f"  train_s={time.perf_counter() - t0:.3f} launches={total}")
 
+    log("phase families: the MoE, SSM and hybrid architectures")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    families = families_phase(torch, ops, _build.LAUNCHES)
+    families["families_s"] = time.perf_counter() - t0
+    total = {k: total[k] + families["launches"][k] for k in _build.KERNELS}
+    log(f"  families_s={families['families_s']:.3f} launches={total}")
+
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -2825,7 +3253,8 @@ def main() -> int:
     log("record: " + json.dumps({"card": card, "phases": phases,
                                  "bs8_wave": bs8, "sim": sim,
                                  "solvers": solvers, "mesh": mesh,
-                                 "serve": serve, "trace": trace,
+                                 "families": families, "serve": serve,
+                                 "trace": trace,
                                  "smoke_s": elapsed}))
     log(card)
     log(json.dumps({"kernels": [{k: v for k, v in r.items() if k != "shape"}

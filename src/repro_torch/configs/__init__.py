@@ -2,9 +2,9 @@
 
 One module per architecture (exact configs from the task brief, sources in
 each file's docstring).  ``--arch <id>`` in the launchers resolves here.
-The port has the four dense token-frontend architectures so far; the other
-ids raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-their family.
+The port has the dense, MoE, SSM and hybrid architectures; the audio and
+VLM ids raise ``NotImplementedError`` naming the ROADMAP.md item that
+ports their frontends.
 """
 from __future__ import annotations
 
@@ -39,11 +39,7 @@ ALIASES = {
 
 #: ids whose family the port does not run yet -> the family's ROADMAP item
 NOT_PORTED = {
-    "phi3_5_moe": "MoE",
-    "mixtral_8x7b": "MoE",
     "hubert_xlarge": "audio frontend",
-    "falcon_mamba_7b": "SSM (mamba1)",
-    "zamba2_2_7b": "hybrid (mamba2 + shared attention)",
     "internvl2_2b": "VLM frontend",
 }
 

@@ -12,8 +12,9 @@ The port of ``repro/models/layers.py``.  Attention comes in three paths:
 * ``decode_attention`` — single-position attention against a KV cache.
   Plain PyTorch.
 
-All keep float32 softmax numerics regardless of activation dtype.  MoE
-(``moe_ffn``) is not ported yet (ROADMAP.md, queue 1 item 8).
+All keep float32 softmax numerics regardless of activation dtype.  The
+MoE FFN (``moe_ffn``, ``moe_ffn_batched``) is the reference's
+capacity-bounded gather-GEMM-scatter dispatch in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -195,3 +196,95 @@ def swiglu(x, w_gate, w_up, w_down):
 def gelu_mlp(x, w1, w2):
     # jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ w1, approximate="tanh") @ w2
+
+
+def set_moe_reshard_axis(axis) -> None:
+    """The reference's launcher hook that reshards MoE hidden activations
+    onto a mesh axis before the down-projection.  On one device there is
+    nothing to reshard: ``None`` (the reference's default) is accepted,
+    an axis raises."""
+    if axis is not None:
+        raise NotImplementedError(
+            f"resharding MoE activations onto axis {axis!r} is not ported "
+            f"yet: ROADMAP.md queue 1 item 8 (sharding)")
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts — capacity-bounded gather-GEMM-scatter dispatch.
+# The same static-capacity pattern as core/bsmm.py: expert assignment is the
+# dynamic block occupancy; tokens are gathered per expert, multiplied as one
+# batched product over the stacked expert weights, and scattered back.
+# ---------------------------------------------------------------------------
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """The router: float32 logits, softmax, the top-k experts of each
+    token and their gates renormalised.  x (..., d) -> (probs (..., E),
+    gate_vals (..., k), exp_idx (..., k))."""
+    probs = torch.softmax(x.float() @ router_w.float(), dim=-1)
+    gate_vals, exp_idx = probs.topk(top_k, dim=-1)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    return probs, gate_vals, exp_idx
+
+
+def _moe_rows(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
+              top_k: int, capacity_factor: float):
+    """The reference's ``moe_ffn`` on each row of x (B, T, d) on its own:
+    each row has its own capacity slots, all rows share one product per
+    expert weight.  Returns (out (B, T, d), aux (B,))."""
+    b, t, d = x.shape
+    e = router_w.shape[1]
+    cap = int(capacity_factor * top_k * t / e) + 1
+    cap = ((cap + 15) // 16) * 16   # the reference's TP-shardable buffers
+
+    probs, gate_vals, exp_idx = moe_route(x, router_w, top_k)
+
+    # load-balancing auxiliary loss (Switch-style); ce carries no gradient
+    flat_e = exp_idx.reshape(b, t * top_k)                   # (B, T*k)
+    onehot = F.one_hot(flat_e, e)                            # (B, T*k, E)
+    ce = onehot.sum(1).float() / (t * top_k)
+    aux = e * (probs.mean(1) * ce).sum(-1)
+
+    # position of each (token, slot) within its expert: a running count in
+    # token-major, slot-minor order, which decides the pairs dropped
+    my_pos = (onehot.cumsum(1) - 1).gather(2, flat_e[..., None])[..., 0]
+    rows = torch.arange(b, device=x.device)[:, None]
+    # expert ex of row r owns slots (ex * B + r) * cap ...; dropped pairs
+    # are parked in the last row, which is never read
+    dest = torch.where(my_pos < cap, (flat_e * b + rows) * cap + my_pos,
+                       e * b * cap).reshape(-1)
+
+    src = x.repeat_interleave(top_k, dim=1).reshape(-1, d)
+    buf = x.new_zeros((e * b * cap + 1, d)).index_add(0, dest, src)
+    xe = buf[:-1].view(e, b * cap, d)
+    h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
+    ye = torch.bmm(h, w_down)                                # (E, B*cap, d)
+
+    # combine: gather back (dropped pairs read an appended zero row) and
+    # weight by the gate in x's type
+    flat_back = torch.cat([ye.reshape(-1, d), x.new_zeros((1, d))])
+    y = flat_back[dest] * gate_vals.reshape(-1, 1).to(x.dtype)
+    return y.view(b, t, top_k, d).sum(2), aux
+
+
+def moe_ffn_batched(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
+                    top_k: int, capacity_factor: float = 1.25
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-batch-row dispatch: x (B, S, d) -> (B, S, d), as the reference's
+    ``vmap`` of :func:`moe_ffn` over B: each row is routed with its own
+    capacity.  Returns (out, mean aux over the rows)."""
+    out, aux = _moe_rows(x, router_w, w_gate, w_up, w_down, top_k=top_k,
+                         capacity_factor=capacity_factor)
+    return out, aux.mean()
+
+
+def moe_ffn(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
+            top_k: int, capacity_factor: float = 1.25
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (T, d); router_w: (d, E); expert weights: (E, d, ff)/(E, ff, d).
+
+    Returns (out (T, d), aux_loss ()).  Tokens over capacity are dropped
+    (contribute zero) — the standard static-shape MoE contract.
+    """
+    out, aux = _moe_rows(x[None], router_w, w_gate, w_up, w_down,
+                         top_k=top_k, capacity_factor=capacity_factor)
+    return out[0], aux[0]

@@ -1,4 +1,4 @@
-"""The LM of the assigned architectures, attention family (the port of
+"""The LM of the assigned architectures (the port of
 ``repro/models/model.py``).
 
 One parameter schema + three entry points:
@@ -7,18 +7,27 @@ One parameter schema + three entry points:
   autograd with ``remat=True`` each layer is recomputed in the backward
   pass (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
 * ``loss_fn``      — next-token cross-entropy for training;
-* ``decode_step``  — one token with a KV cache (serve path).
+* ``decode_step``  — one token with KV / SSM caches (serve path).
+
+Families:
+  dense               : attention + (Swi)GLU blocks, uniform stack
+  moe                 : attention + MoE FFN (capacity-bounded dispatch)
+  ssm (mamba1)        : pure Mamba1 blocks, no attention anywhere
+  hybrid (mamba2)     : Mamba2 stack with ONE shared attention+MLP block
+                        applied every ``attn_every`` layers (zamba2-style;
+                        the shared block has a single parameter set)
 
 Parameters are a nested dict of tensors with the reference's keys and
-layouts; the layers are stacked along a leading L axis and run in a
-Python loop.  :func:`params_from_numpy` and :func:`adamw_state_from_numpy`
-carry the reference's parameters and optimizer state across.  The dense
-family runs and trains; the MoE FFN, the Mamba mixers of the ssm and
-hybrid families and the frame / patch frontends raise
-``NotImplementedError`` naming ROADMAP.md queue 1 item 8.
+layouts; the layers are stacked along a leading L axis (``(groups,
+attn_every)`` for the hybrid) and run in a Python loop.
+:func:`params_from_numpy` and :func:`adamw_state_from_numpy` carry the
+reference's parameters and optimizer state across.  The frame and patch
+frontends (the audio and VLM families) raise ``NotImplementedError``
+naming ROADMAP.md queue 1 item 8.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -29,6 +38,7 @@ from repro_torch.core.engine import resolve_device
 from repro_torch.optim import AdamWState
 
 from . import layers as L
+from . import ssm
 from .config import ModelConfig
 
 Params = dict
@@ -41,10 +51,6 @@ def _not_ported(what: str) -> NotImplementedError:
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family == "hybrid" or cfg.mixer != "attention":
-        raise _not_ported(f"the {cfg.mixer} mixer ({cfg.family} family)")
-    if cfg.n_experts:
-        raise _not_ported("the MoE FFN")
     if cfg.frontend != "tokens":
         raise _not_ported(f"the {cfg.frontend} frontend")
 
@@ -71,16 +77,67 @@ def _mlp_param_shapes(cfg: ModelConfig, lead: tuple) -> dict:
     return {"w1": lead + (d, ff), "w2": lead + (ff, d)}
 
 
+def _mamba1_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, di, st, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    return {
+        "in_proj": lead + (d, 2 * di),
+        "conv": lead + (di, cfg.d_conv),
+        "x_proj": lead + (di, dr + 2 * st),
+        "dt_proj": lead + (dr, di),
+        "dt_bias": lead + (di,),
+        "A_log": lead + (di, st),
+        "D": lead + (di,),
+        "out_proj": lead + (di, d),
+    }
+
+
+def _mamba2_shapes(cfg: ModelConfig, lead: tuple) -> dict:
+    d, di, st = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    nh = cfg.n_ssm_heads
+    return {
+        "in_proj": lead + (d, 2 * di + 2 * st + nh),
+        "conv": lead + (di + 2 * st, cfg.d_conv),
+        "A_log": lead + (nh,),
+        "D": lead + (nh,),
+        "dt_bias": lead + (nh,),
+        "norm_scale": lead + (di,),
+        "out_proj": lead + (di, d),
+    }
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of parameter shapes (schema single source of truth)."""
     _check_family(cfg)
-    d, lead = cfg.d_model, (cfg.n_layers,)
+    d = cfg.d_model
     shapes: dict = {"embed": (cfg.vocab, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.vocab, d)
-    shapes["layers"] = {**_attn_param_shapes(cfg, lead),
-                        "norm_attn": lead + (d,), "norm_mlp": lead + (d,),
-                        **_mlp_param_shapes(cfg, lead)}
+
+    if cfg.family == "hybrid":
+        lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
+        shapes["layers"] = {**_mamba2_shapes(cfg, lead),
+                            "norm_mixer": lead + (d,)}
+        shapes["shared"] = {**_attn_param_shapes(cfg, ()),
+                            **_mlp_param_shapes(cfg, ()),
+                            "norm_attn": (d,), "norm_mlp": (d,)}
+        return shapes
+
+    lead = (cfg.n_layers,)
+    if cfg.mixer == "mamba1":
+        shapes["layers"] = {**_mamba1_shapes(cfg, lead),
+                            "norm_mixer": lead + (d,)}
+        return shapes
+
+    layer: dict = {**_attn_param_shapes(cfg, lead),
+                   "norm_attn": lead + (d,), "norm_mlp": lead + (d,)}
+    if cfg.n_experts:
+        layer["router"] = lead + (d, cfg.n_experts)
+        layer["w_gate"] = lead + (cfg.n_experts, d, cfg.d_ff)
+        layer["w_up"] = lead + (cfg.n_experts, d, cfg.d_ff)
+        layer["w_down"] = lead + (cfg.n_experts, cfg.d_ff, d)
+    else:
+        layer.update(_mlp_param_shapes(cfg, lead))
+    shapes["layers"] = layer
     return shapes
 
 
@@ -105,13 +162,13 @@ def _unflatten(items) -> dict:
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> Params:
-    """Random parameters with the reference's distributions: norms zero
-    (float32), every other weight normal * fan_in**-0.5 in the config's
-    type, fan_in being the second-to-last axis.  The parameters lie on
-    ``device`` (the card unless it is ``"cpu"``); the draws come from
-    ``generator``, which must be on the same kind of device (seed 0 when
-    not given), so they are not the reference's: carry its weights across
-    with :func:`params_from_numpy`.
+    """Random parameters with the reference's distributions: norms, ``D``
+    and ``A_log`` zero and ``dt_bias`` -2 (float32), every other weight
+    normal * fan_in**-0.5 in the config's type, fan_in being the
+    second-to-last axis.  The parameters lie on ``device`` (the card unless
+    it is ``"cpu"``); the draws come from ``generator``, which must be on
+    the same kind of device (seed 0 when not given), so they are not the
+    reference's: carry its weights across with :func:`params_from_numpy`.
     """
     device = resolve_device(device)
     if generator is None:
@@ -121,13 +178,35 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                          f"parameters asked for on {device}")
     out = []
     for path, shape in _leaves(param_shapes(cfg)):
-        if "norm" in path[-1]:
+        name = path[-1]
+        if "norm" in name or name in ("D", "A_log"):
+            # A_log = 0 -> decay rate -1 (stable); norms start at identity
             out.append((path, torch.zeros(shape, device=device)))
-            continue
-        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
-        w = torch.randn(shape, generator=generator, device=device)
-        out.append((path, w.mul_(fan_in ** -0.5).to(cfg.torch_dtype)))
+        elif name == "dt_bias":
+            out.append((path, torch.full(shape, -2.0, device=device)))
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            out.append((path, _normal(shape, fan_in ** -0.5, cfg.torch_dtype,
+                                      generator, device)))
     return _unflatten(out)
+
+
+#: a leaf of more elements is drawn one slice of its leading axis at a time
+_DRAW_SLAB = 2 ** 30
+
+
+def _normal(shape: tuple, scale: float, dtype: torch.dtype,
+            generator: torch.Generator, device) -> torch.Tensor:
+    """normal * scale in ``dtype``, drawn in float32; a leaf larger than
+    ``_DRAW_SLAB`` elements (the experts of a full-width MoE stack) is
+    drawn slice by slice, so its float32 draws never live at once."""
+    if math.prod(shape) <= _DRAW_SLAB:
+        w = torch.randn(shape, generator=generator, device=device)
+        return w.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for part in out:
+        part.copy_(_normal(shape[1:], scale, dtype, generator, device))
+    return out
 
 
 def params_from_numpy(tree: dict, device=None) -> Params:
@@ -200,16 +279,50 @@ def _mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 def _attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
                 positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Pre-norm attention + FFN block. Returns (x, aux_loss)."""
+    """Pre-norm attention + FFN/MoE block. Returns (x, aux_loss)."""
     h = L.apply_norm(cfg.norm, x, p.get("norm_attn"))
     x = x + _attention(cfg, p, h, positions)
     h = L.apply_norm(cfg.norm, x, p.get("norm_mlp"))
-    x = x + _mlp(cfg, p, h)
-    return x, torch.zeros((), device=x.device)
+    if cfg.n_experts:
+        y, aux = L.moe_ffn_batched(h, p["router"], p["w_gate"], p["w_up"],
+                                   p["w_down"], top_k=cfg.top_k,
+                                   capacity_factor=cfg.moe_capacity_factor)
+        return x + y, aux
+    return x + _mlp(cfg, p, h), torch.zeros((), device=x.device)
 
 
-def _layer(params: Params, i: int) -> dict:
-    return {k: w[i] for k, w in params["layers"].items()}
+def _mamba1_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    h = L.apply_norm(cfg.norm, x, p.get("norm_mixer"))
+    return x + ssm.mamba1_forward(p, h, state=cfg.ssm_state, chunk=chunk)
+
+
+def _mamba2_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    h = L.apply_norm(cfg.norm, x, p.get("norm_mixer"))
+    return x + ssm.mamba2_forward(p, h, state=cfg.ssm_state,
+                                  head_dim=cfg.ssm_head_dim, chunk=chunk)
+
+
+def _unstack(w: torch.Tensor, depth: int):
+    """The layers of a leaf stacked on ``depth`` leading axes, as nested
+    lists of views: one ``unbind`` per axis, whose backward stacks the
+    layers' gradients once, where indexing would add a full-size
+    zero-filled gradient per layer."""
+    if depth == 0:
+        return w
+    return [_unstack(t, depth - 1) for t in w.unbind(0)]
+
+
+def _layers(params: Params, depth: int = 1) -> list:
+    """Per layer (nested ``depth`` deep) the dict of its parameters."""
+    stacks = {k: _unstack(w, depth) for k, w in params["layers"].items()}
+
+    def pick(node: dict, lvl: int):
+        n = len(next(iter(node.values())))
+        out = [{k: v[i] for k, v in node.items()} for i in range(n)]
+        return out if lvl == 1 else [pick(o, lvl - 1) for o in out]
+    return pick(stacks, depth)
 
 
 def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
@@ -219,8 +332,16 @@ def _unembed(cfg: ModelConfig, params: Params, x: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Forward (prefill)
+# Forward (train / prefill)
 # ---------------------------------------------------------------------------
+
+def _run(recompute: bool, fn, *args):
+    """``fn(*args)``, kept for the backward pass by its input only (run
+    again there) when ``recompute``."""
+    if recompute:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
 
 def forward(cfg: ModelConfig, params: Params, batch: dict,
             remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
@@ -229,10 +350,11 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
     ``batch["tokens"]``: (B, S) integer token ids.  With ``remat`` and
     gradients on, each layer keeps only its input for the backward pass and
     is run again there (``torch.utils.checkpoint``, non-reentrant), as the
-    reference's ``jax.checkpoint`` around each layer body: on the window
-    path the attention kernel then launches twice a layer and step.
-    Without gradients (``torch.inference_mode()``, the prefill) ``remat``
-    changes nothing.
+    reference's ``jax.checkpoint`` around each layer body (the hybrid: each
+    group, and each mamba layer inside it): on the window path the
+    attention kernel then launches twice a layer and step.  Without
+    gradients (``torch.inference_mode()``, the prefill) ``remat`` changes
+    nothing.
     """
     _check_family(cfg)
     embed = params["embed"]
@@ -241,20 +363,33 @@ def forward(cfg: ModelConfig, params: Params, batch: dict,
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), device=x.device)
-    # one unbind per stacked leaf: its backward stacks the layers'
-    # gradients once, where indexing would add a full-size zero-filled
-    # gradient per layer
-    stacks = {k: w.unbind(0) for k, w in params["layers"].items()}
     recompute = remat and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        lp = {k: ws[i] for k, ws in stacks.items()}
-        if recompute:
-            x, a = checkpoint(_attn_block, cfg, lp, x, positions,
-                              use_reentrant=False)
-        else:
-            x, a = _attn_block(cfg, lp, x, positions)
-        aux = aux + a
+    if cfg.family == "hybrid":
+        x = _hybrid_stack(cfg, params, x, positions, recompute)
+    elif cfg.mixer == "mamba1":
+        chunk = 1024 if cfg.cost_mode else 256
+        for lp in _layers(params):
+            x = _run(recompute, _mamba1_block, cfg, lp, x, chunk)
+    else:
+        for lp in _layers(params):
+            x, a = _run(recompute, _attn_block, cfg, lp, x, positions)
+            aux = aux + a
     return _unembed(cfg, params, x), aux
+
+
+def _hybrid_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
+                  positions: torch.Tensor, recompute: bool) -> torch.Tensor:
+    chunk = 512 if cfg.cost_mode else 128
+
+    def group(gp: list, x: torch.Tensor) -> torch.Tensor:
+        for lp in gp:
+            x = _run(recompute, _mamba2_block, cfg, lp, x, chunk)
+        # shared attention + MLP block (single parameter set, reused)
+        return _attn_block(cfg, params["shared"], x, positions)[0]
+
+    for gp in _layers(params, depth=2):
+        x = _run(recompute, group, gp, x)
+    return x
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
@@ -275,16 +410,35 @@ def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """KV cache (L, B, max_len, KV, hd) in the config's type.
+    """KV cache for attention layers and/or SSM state for mamba layers:
+    k, v (L, B, max_len, KV, hd) in the config's type (the hybrid: one
+    per group); conv (…, B, K-1, C) in the config's type and ssm in
+    float32, with the hybrid's (groups, attn_every) leading axes.
 
     SWA archs keep the full length too, as the reference's code does (its
     comment speaks of a ring buffer of ``window`` entries; the code keeps
     ``max_len``)."""
     _check_family(cfg)
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
-            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+    def mk(shape, dtype=cfg.torch_dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    kv = (batch, max_len, cfg.n_kv_heads, cfg.hd)
+    conv = (batch, cfg.d_conv - 1)
+    if cfg.family == "hybrid":
+        g = cfg.n_layers // cfg.attn_every
+        lead = (g, cfg.attn_every)
+        return {"k": mk((g,) + kv), "v": mk((g,) + kv),
+                "conv": mk(lead + conv + (cfg.d_inner + 2 * cfg.ssm_state,)),
+                "ssm": mk(lead + (batch, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state), torch.float32)}
+    lead = (cfg.n_layers,)
+    if cfg.mixer == "mamba1":
+        return {"conv": mk(lead + conv + (cfg.d_inner,)),
+                "ssm": mk(lead + (batch, cfg.d_inner, cfg.ssm_state),
+                          torch.float32)}
+    return {"k": mk(lead + kv), "v": mk(lead + kv)}
 
 
 def _decode_attention_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
@@ -301,24 +455,68 @@ def _decode_attention_layer(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return out.reshape(b, 1, -1) @ p["wo"]
 
 
+def _decode_attn_block(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       pos: int) -> torch.Tensor:
+    """The attention block of one decode step; the MoE FFN dispatches the
+    batch's B tokens as one group, as the reference's decode does (its
+    prefill dispatches each row on its own)."""
+    h = L.apply_norm(cfg.norm, x, p.get("norm_attn"))
+    x = x + _decode_attention_layer(cfg, p, h, k_cache, v_cache, pos)
+    h = L.apply_norm(cfg.norm, x, p.get("norm_mlp"))
+    if cfg.n_experts:
+        y, _ = L.moe_ffn(h[:, 0], p["router"], p["w_gate"], p["w_up"],
+                         p["w_down"], top_k=cfg.top_k,
+                         capacity_factor=cfg.moe_capacity_factor)
+        return x + y[:, None]
+    return x + _mlp(cfg, p, h)
+
+
+def _decode_mixer(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                  conv: torch.Tensor, ssm_state: torch.Tensor
+                  ) -> torch.Tensor:
+    """One mamba layer of a decode step; its conv and ssm states (cache
+    slices) are written in place."""
+    h = L.apply_norm(cfg.norm, x[:, 0], p.get("norm_mixer"))
+    if cfg.mixer == "mamba1":
+        y, st = ssm.mamba1_step(p, h, ssm.MambaState(conv, ssm_state),
+                                state=cfg.ssm_state)
+    else:
+        y, st = ssm.mamba2_step(p, h, ssm.Mamba2State(conv, ssm_state),
+                                state=cfg.ssm_state,
+                                head_dim=cfg.ssm_head_dim)
+    conv.copy_(st.conv)
+    ssm_state.copy_(st.ssm)
+    return x + y[:, None]
+
+
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
                 cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
     """One decode step.  token: (B,) integer; pos: current length.
 
     Returns (logits (B, V) float32, cache).  Unlike the reference, which
-    returns a new cache, the port writes the new position into ``cache``
-    in place and returns it.
+    returns a new cache, the port writes the new position (and the SSM
+    layers' new states) into ``cache`` in place and returns it.
     """
     _check_family(cfg)
     embed = params["embed"]
     token = torch.as_tensor(token, device=embed.device).long()
     pos = int(pos)
     x = embed[token][:, None, :].to(cfg.torch_dtype)          # (B, 1, d)
-    for i in range(cfg.n_layers):
-        p = _layer(params, i)
-        h = L.apply_norm(cfg.norm, x, p.get("norm_attn"))
-        x = x + _decode_attention_layer(cfg, p, h, cache["k"][i],
-                                        cache["v"][i], pos)
-        h = L.apply_norm(cfg.norm, x, p.get("norm_mlp"))
-        x = x + _mlp(cfg, p, h)
+    if cfg.family == "hybrid":
+        for gi, gp in enumerate(_layers(params, depth=2)):
+            for j, lp in enumerate(gp):
+                x = _decode_mixer(cfg, lp, x, cache["conv"][gi, j],
+                                  cache["ssm"][gi, j])
+            # the shared attention + MLP block
+            x = _decode_attn_block(cfg, params["shared"], x, cache["k"][gi],
+                                   cache["v"][gi], pos)
+    elif cfg.mixer == "mamba1":
+        for i, lp in enumerate(_layers(params)):
+            x = _decode_mixer(cfg, lp, x, cache["conv"][i],
+                              cache["ssm"][i])
+    else:
+        for i, lp in enumerate(_layers(params)):
+            x = _decode_attn_block(cfg, lp, x, cache["k"][i],
+                                   cache["v"][i], pos)
     return _unembed(cfg, params, x)[:, 0].float(), cache

@@ -497,6 +497,73 @@ def test_lm_prefill_runs_through_the_kernel(cuda_device, batch):
     assert float((got.cpu() - want).abs().max()) <= 1e-4
 
 
+def _to(params, device):
+    return {k: ({n: w.to(device) for n, w in v.items()}
+                if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
+@pytest.mark.parametrize("arch", ["phi3_5_moe", "mixtral_8x7b",
+                                  "falcon_mamba_7b", "zamba2_2_7b"])
+def test_family_prefill_on_the_card_matches_the_cpu(cuda_device, arch):
+    """The MoE, SSM and hybrid smoke configs' prefill (S = 64) on the card
+    against the same prefill on the CPU, within 1e-4; mixtral's (window
+    32 < 64) launches the attention kernel once a layer, the others
+    never."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as M
+    cfg = get_smoke_config(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    tokens = torch.tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64)))
+    with torch.inference_mode():
+        want, want_aux = M.forward(cfg, params, {"tokens": tokens})
+        before = ops.LAUNCHES["block_attention"]
+        got, aux = M.forward(cfg, _to(params, cuda_device),
+                             {"tokens": tokens.to(cuda_device)})
+        torch.cuda.synchronize()
+    windowed = arch == "mixtral_8x7b"
+    assert ops.LAUNCHES["block_attention"] == before + (
+        cfg.n_layers if windowed else 0)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    assert abs(float(aux) - float(want_aux)) <= 1e-5
+
+
+def test_mixtral_remat_gradients_on_the_card_match_the_cpu(cuda_device):
+    """``loss_fn``'s gradients of the mixtral smoke config (S = 128 >
+    window 32, remat) on the card against the CPU's, 1e-4 a leaf
+    (relative Frobenius): both attention kernels, the MoE dispatch and
+    its aux loss under ``torch.utils.checkpoint``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = get_smoke_config("mixtral_8x7b")
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    batch = SyntheticLM(cfg.vocab, 128, 2, seed=3).batch_at(0)
+
+    def grads(p, device):
+        live = tree_map(lambda w: w.to(device).requires_grad_(), p)
+        loss, _ = M.loss_fn(cfg, live, {k: torch.from_numpy(v).to(device)
+                                        for k, v in batch.items()})
+        return loss, torch.autograd.grad(loss, tree_leaves(live))
+
+    want_loss, want = grads(params, "cpu")
+    before = dict(ops.LAUNCHES)
+    got_loss, got = grads(params, cuda_device)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["block_attention"] == \
+        before["block_attention"] + 2 * cfg.n_layers
+    assert ops.LAUNCHES["block_attention_bwd"] == \
+        before["block_attention_bwd"] + cfg.n_layers
+    assert abs(float(got_loss) - float(want_loss)) <= 1e-5
+    for g, w in zip(got, want):
+        rel = float((g.cpu() - w).norm() / w.norm().clamp_min(1e-30))
+        assert rel <= 1e-4
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h,h_kv,s,d,window", [

@@ -34,6 +34,8 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 
 DENSE = ["h2o_danube3_4b", "llama3_2_3b", "olmo_1b", "stablelm_12b"]
+#: the MoE, SSM and hybrid families
+FAMILIES = ["phi3_5_moe", "mixtral_8x7b", "falcon_mamba_7b", "zamba2_2_7b"]
 
 #: float32 agreement of two float32 implementations that sum in other
 #: orders (einsum vs lax.dot, a Python loop vs lax.scan)
@@ -289,24 +291,39 @@ def _tokens(cfg, b, s, seed=2):
         0, cfg.vocab, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 @pytest.mark.parametrize("s", [64, 16])
-def test_forward_matches_reference(arch, s):
-    """S = 64 takes the window path for h2o (window 32 < 64), S = 16 the
-    chunked path for every config."""
+def test_forward_matches_reference(arch, s, monkeypatch):
+    """S = 64 takes the window path for h2o and mixtral (window 32 < 64)
+    through ``ops.banded_attention`` once a layer, S = 16 the chunked path
+    for every config; the MoE aux loss equals the reference's (0 for the
+    other families)."""
     cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jp, tp = _params(arch)
     tokens = _tokens(cfg, 2, s)
-    want, _ = JM.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)},
-                         remat=False)
+    want, jaux = JM.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)},
+                            remat=False)
+    real, band = ops.banded_attention, []
+
+    def counting(*a, **kw):
+        band.append(kw["window"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(ops, "banded_attention", counting)
     got, aux = M.forward(cfg, tp, {"tokens": torch.from_numpy(tokens)})
-    assert got.shape == (2, s, cfg.vocab) and float(aux) == 0.0
+    windowed = bool(cfg.swa_window) and cfg.swa_window < s
+    assert band == ([cfg.swa_window] * cfg.n_layers if windowed else [])
+    assert got.shape == (2, s, cfg.vocab)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    assert (float(aux) == 0.0) == (not cfg.n_experts)
     np.testing.assert_allclose(_np(got), _np(want), atol=LOGIT_ATOL)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES)
 def test_decode_step_and_generate_match_reference(arch):
+    """Logits of every step, then every cache the config has (k and v;
+    the SSM layers' conv and ssm states), then greedy tokens exactly."""
     cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
     jp, tp = _params(arch)
     tokens = _tokens(cfg, 2, 12, seed=3)
@@ -321,8 +338,12 @@ def test_decode_step_and_generate_match_reference(arch):
                                    cache, t)
         assert got.dtype == torch.float32
         np.testing.assert_allclose(_np(got), _np(want), atol=LOGIT_ATOL)
-    np.testing.assert_allclose(_np(cache["k"]), _np(jcache["k"]),
-                               atol=F32_ATOL)
+    assert cache.keys() == jcache.keys()
+    for key in cache:
+        assert cache[key].dtype == (torch.float32 if key == "ssm"
+                                    else cfg.torch_dtype)
+        np.testing.assert_allclose(_np(cache[key]), _np(jcache[key]),
+                                   atol=F32_ATOL)
     prompts = _tokens(cfg, 2, 8, seed=4)
     want = jserve.generate(jcfg, jp, prompts, 6, 14)
     got = lm_serve.generate(cfg, tp, prompts, 6, 14)
@@ -349,9 +370,14 @@ def test_decode_matches_forward_beyond_the_window():
                                atol=2e-2, rtol=1e-2)
 
 
-def test_init_params_matches_reference_schema_and_scale():
-    cfg = get_smoke_config("llama3_2_3b")
-    jp, _ = _params("llama3_2_3b")
+@pytest.mark.parametrize("arch", ["llama3_2_3b"] + FAMILIES)
+def test_init_params_matches_reference_schema_and_scale(arch):
+    """The reference's leaves (the hybrid's ``shared`` block and its
+    (groups, attn_every) stacks too), and its distributions: norms, ``D``
+    and ``A_log`` zero, ``dt_bias`` -2, the rest unit normal over
+    sqrt(fan_in), fan_in the second-to-last axis."""
+    cfg = get_smoke_config(arch)
+    jp, _ = _params(arch)
     tp = M.init_params(cfg, device="cpu")
     flat_j = {jax.tree_util.keystr(p): np.asarray(x)
               for p, x in jax.tree_util.tree_flatten_with_path(jp)[0]}
@@ -361,16 +387,18 @@ def test_init_params_matches_reference_schema_and_scale():
     for key, want in flat_j.items():
         got = flat_t[key]
         assert tuple(got.shape) == want.shape and got.dtype == torch.float32
-        if "norm" in key:
-            assert not got.any()
+        name = key.split("'")[-2]
+        if "norm" in name or name in ("D", "A_log"):
+            assert not got.any() and not want.any()
+        elif name == "dt_bias":
+            assert (got == -2.0).all() and (want == -2.0).all()
         else:
             fan_in = want.shape[-2]
             assert abs(float(got.std()) * fan_in ** 0.5 - 1) < 0.1
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    for arch in ("mixtral_8x7b", "phi3_5_moe", "falcon_mamba_7b",
-                 "zamba2_2_7b", "hubert_xlarge", "internvl2_2b"):
+    for arch in ("hubert_xlarge", "internvl2_2b"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_smoke_config(arch)
     with pytest.raises(KeyError):
@@ -379,8 +407,9 @@ def test_unported_families_raise_naming_the_roadmap():
     assert (cfg.n_layers, cfg.d_model, cfg.hd, cfg.swa_window) == \
         (24, 3840, 120, 4096)
     assert cfg.torch_dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        M.init_params(cfg.scaled(n_experts=4, top_k=2), device="cpu")
+    for frontend in ("frames", "patches"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            M.init_params(cfg.scaled(frontend=frontend), device="cpu")
 
 
 def test_entry_points_default_to_the_card():
@@ -407,8 +436,9 @@ def test_init_params_refuses_a_generator_on_another_device():
 
 
 def test_lm_path_imports_neither_jax_nor_repro():
-    """A CPU forward + generate on the h2o smoke config loads no jax and
-    no ``repro`` module."""
+    """A CPU forward + generate on the h2o, mixtral, falcon-mamba and
+    zamba2 smoke configs (``models/ssm.py`` among the modules) loads no jax
+    and no ``repro`` module."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
@@ -416,13 +446,17 @@ def test_lm_path_imports_neither_jax_nor_repro():
         from repro_torch.configs import get_smoke_config
         from repro_torch.launch import lm_serve
         from repro_torch.models import model as M
-        cfg = get_smoke_config("h2o_danube3_4b")
-        params = M.init_params(cfg, device="cpu")
-        tokens = torch.zeros((1, 64), dtype=torch.long)
-        logits, _ = M.forward(cfg, params, {"tokens": tokens})
-        assert torch.isfinite(logits).all()
-        out = lm_serve.generate(cfg, params, np.zeros((2, 4), np.int32), 3, 8)
-        assert out.shape == (2, 3)
+        for arch in ("h2o_danube3_4b", "mixtral_8x7b", "falcon_mamba_7b",
+                     "zamba2_2_7b"):
+            cfg = get_smoke_config(arch)
+            params = M.init_params(cfg, device="cpu")
+            tokens = torch.zeros((1, 64), dtype=torch.long)
+            logits, _ = M.forward(cfg, params, {"tokens": tokens})
+            assert torch.isfinite(logits).all()
+            out = lm_serve.generate(cfg, params, np.zeros((2, 4), np.int32),
+                                    3, 8)
+            assert out.shape == (2, 3)
+        assert "repro_torch.models.ssm" in sys.modules
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith(("jax.", "jaxlib"))
                or m == "repro" or m.startswith("repro.")]

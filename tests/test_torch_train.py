@@ -107,12 +107,23 @@ def _port_loss_and_grads(cfg, tp, batch, remat=True):
 # loss and gradients
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", [ARCH, "llama3_2_3b"])
-def test_loss_and_gradients_match_reference(arch):
-    """h2o at S = 128 > window 32 takes the band path (the backward of
-    ``ops.banded_attention``); llama takes the chunked path (autograd of
-    plain PyTorch)."""
-    cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
+@pytest.mark.parametrize("arch,overrides", [
+    pytest.param(a, {}, id=a) for a in (ARCH, "llama3_2_3b", "phi3_5_moe",
+                                        "mixtral_8x7b", "falcon_mamba_7b",
+                                        "zamba2_2_7b")] + [
+    pytest.param("phi3_5_moe", {"moe_capacity_factor": 1.0},
+                 id="phi3_5_moe-capacity_factor_1")])
+def test_loss_and_gradients_match_reference(arch, overrides):
+    """h2o and mixtral at S = 128 > window 32 take the band path (the
+    backward of ``ops.banded_attention``); llama takes the chunked path
+    (autograd of plain PyTorch).  The MoE configs add the aux loss and the
+    router's gradients through the gates and the aux loss, at capacity
+    factor 8 (the smoke configs') and at 1, where 25 and 34 of the 512
+    (token, slot) pairs of the two layers are dropped; falcon-mamba and
+    zamba2 run the chunked scans and zamba2's nested remat (each group,
+    each mamba layer)."""
+    cfg = get_smoke_config(arch).scaled(**overrides)
+    jcfg = jax_smoke_config(arch).scaled(**overrides)
     jp, tp = _params(arch)
     batch = _batch(cfg)
     (want, _), jgrads = jax.jit(jax.value_and_grad(
@@ -127,9 +138,13 @@ def test_loss_and_gradients_match_reference(arch):
         assert _rel(g, jg) <= GRAD_RTOL
 
 
-def test_remat_gives_the_same_gradients_bitwise():
-    cfg = get_smoke_config(ARCH)
-    _, tp = _params(ARCH)
+@pytest.mark.parametrize("arch", [ARCH, "mixtral_8x7b", "zamba2_2_7b"])
+def test_remat_gives_the_same_gradients_bitwise(arch):
+    """Remat changes no bit of the loss or the gradients: h2o's blocks,
+    mixtral's, whose checkpointed block returns (x, aux), and zamba2's
+    nested checkpoints (each group, each mamba layer in it)."""
+    cfg = get_smoke_config(arch)
+    _, tp = _params(arch)
     batch = _batch(cfg, step=1)
     l1, g1 = _port_loss_and_grads(cfg, tp, batch, remat=True)
     l0, g0 = _port_loss_and_grads(cfg, tp, batch, remat=False)
@@ -164,12 +179,23 @@ def test_banded_attention_cpu_gradient_matches_reference_autodiff():
 # the train step
 # ---------------------------------------------------------------------------
 
+_REF_STEPS = {}
+
+
+def _ref_step_for(arch):
+    """The reference's train step of an arch's smoke config on a one-device
+    mesh, jitted once."""
+    if arch not in _REF_STEPS:
+        builder = JTrainStep(jax_smoke_config(arch), _one_device_mesh(),
+                             **STEP_KW)
+        _REF_STEPS[arch] = jax.jit(builder.step_fn(SHAPE))
+    return _REF_STEPS[arch]
+
+
 @pytest.fixture(scope="module")
 def ref_step():
     """The reference's train step on a one-device mesh, jitted once."""
-    jcfg = jax_smoke_config(ARCH)
-    builder = JTrainStep(jcfg, _one_device_mesh(), **STEP_KW)
-    return jax.jit(builder.step_fn(SHAPE))
+    return _ref_step_for(ARCH)
 
 
 def _jbatch(b):
@@ -261,15 +287,20 @@ def _train_state_like(tp, topt):
     return (0, (tp, topt))
 
 
-@pytest.mark.parametrize("direction", ["reference_to_port",
-                                       "port_to_reference"])
-def test_checkpoints_cross_and_training_continues(ref_step, tmp_path,
+@pytest.mark.parametrize("arch,direction", [
+    pytest.param(a, d, id=d if a == ARCH else f"{a}-{d}")
+    for a in (ARCH, "phi3_5_moe", "zamba2_2_7b")
+    for d in ("reference_to_port", "port_to_reference")])
+def test_checkpoints_cross_and_training_continues(tmp_path, arch,
                                                    direction):
     """Two reference steps, a checkpoint of ``(step, (params, opt))`` in
     the runner's layout, a restore on the other side, then one step on
-    each side from the same state: the same loss."""
-    cfg = get_smoke_config(ARCH)
-    jp, tp = _params(ARCH)
+    each side from the same state: the same loss.  h2o's tree, an MoE
+    tree (router and stacked experts) and the hybrid's (mamba2 leaves on
+    two leading axes and the shared block)."""
+    cfg = get_smoke_config(arch)
+    ref_step = _ref_step_for(arch)
+    jp, tp = _params(arch)
     jopt = jadamw_init(jp)
     data = SyntheticLM(cfg.vocab, SHAPE.seq_len, SHAPE.global_batch, seed=3)
     for i in range(2):
@@ -510,8 +541,10 @@ def test_property_quantization_relative_error(seed, scale):
 # the driver
 # ---------------------------------------------------------------------------
 
-def test_train_main_drill_restarts_once_and_loss_falls(tmp_path, capsys):
-    rc = train.main(["--arch", "h2o-danube-3-4b", "--smoke", "--seq", "128",
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral_8x7b"])
+def test_train_main_drill_restarts_once_and_loss_falls(tmp_path, capsys,
+                                                       arch):
+    rc = train.main(["--arch", arch, "--smoke", "--seq", "128",
                      "--batch", "2", "--steps", "30", "--drill-fail-step",
                      "12", "--ckpt-every", "5", "--ckpt-dir", str(tmp_path),
                      "--device", "cpu", "--compress-grads"])
