@@ -152,6 +152,35 @@ families — the MoE, SSM and hybrid architectures (after train, before lm
              layers, B = 1, S = 8192: a warm-up step, then one step with a
              finite loss and gradient norm, launching ``banded_attention``
              4 times and its backward twice, all on ``wgmma``.
+frontends — the audio and VLM frontends (after families, before lm and
+             every profiler session).  (a) The smoke configs of
+             hubert-xlarge (frames) and internvl2-2b (patches and text) on
+             the driver's batch (``launch.train.train_batch``), 2 x 64
+             positions: logits within 1e-4, the loss within 1e-5 relative
+             and each gradient leaf within 1e-4 relative Frobenius of the
+             CPU's.  (b) hubert-xlarge and (c) internvl2-2b at full width
+             and depth (48 and 24 layers, bf16, seeded): a forward over 1 x
+             8192 positions (internvl2-2b: 256 patches + 7936 tokens) with
+             finite logits, internvl2-2b's ``lm_serve.generate`` at batch
+             4, prompt 32, gen 16, then two ``TrainStep`` steps on the
+             driver's batches of steps 0 and 1 with finite losses and
+             gradient norms; seconds, positions/s, tokens/s and
+             ``max_memory_allocated``.  Both attend without a window (the
+             plain ``chunked_attention``), so no kernel may launch.
+dp      — the data-parallel ``TrainStep`` (after frontends): 2 gloo ranks
+             sharing ``cuda:0`` (``launch.mesh.launch_ranks``) on the mesh
+             (data 2, model 1), h2o-danube3-4b at full width and 2 layers,
+             one row of 8192 tokens a rank.  Each rank's gradient pass
+             launches ``banded_attention`` 4 times and its backward twice,
+             on ``wgmma``; rank 0 then computes the one-device gradient of
+             the whole batch itself: the averaged gradient's worst leaf
+             within DP_GRAD_BOUND (2e-2 relative Frobenius, PERF.md §4),
+             which rank 0's own gradient (a rank that skips the
+             all-reduce) must miss.  Then one step per rank, timed: its
+             launches, the all-reduce's seconds and bytes, and the largest
+             difference of the parameters and moments across the ranks,
+             which must be 0.  The ranks share one card: correctness and
+             counts, no multi-GPU speed.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -2983,6 +3012,379 @@ def families_phase(torch, ops, launches) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase frontends: the audio and VLM frontends
+# ---------------------------------------------------------------------------
+
+FRONTEND_ARCHS = ("hubert_xlarge", "internvl2_2b")
+#: the smoke configs' (batch, positions) on the card against the CPU
+FRONTEND_SMOKE = (2, 64)
+#: full width and depth: (batch, positions) of the encoder forward, the
+#: prefill and the train steps (internvl2-2b: 256 patches + 7936 tokens)
+FRONTEND_SHAPE = (1, 8192)
+FRONTEND_TRAIN_STEPS = 2
+
+
+def frontend_grads(torch, cfg, params, batch) -> tuple:
+    """(logits, loss, gradients) of ``loss_fn`` on a batch, as the train
+    step takes them (a leaf the loss does not read gets zeros)."""
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    with torch.no_grad():
+        logits, _ = M.forward(cfg, params, batch)
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, _ = M.loss_fn(cfg, live, batch)
+    grads = torch.autograd.grad(loss, tree_leaves(live),
+                                materialize_grads=True)
+    return logits, loss.detach(), grads
+
+
+def frontends_smoke(torch, launches) -> dict:
+    """(a) Each smoke config on the driver's batch (frames; patches and
+    text) at FRONTEND_SMOKE: logits within 1e-4, the loss within 1e-5
+    relative and each gradient leaf within 1e-4 relative Frobenius of the
+    CPU's (float32); no kernel launches (no window)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import batch_to, train_batch
+    from repro_torch.models import model as M
+
+    b, s = FRONTEND_SMOKE
+    out = {}
+    for arch in FRONTEND_ARCHS:
+        cfg = get_smoke_config(arch)
+        p_cpu = M.init_params(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+        raw = train_batch(cfg, SyntheticLM(cfg.vocab, s, b, seed=0), 0, b, s)
+        want = frontend_grads(torch, cfg, p_cpu, batch_to(cfg, raw, "cpu"))
+        reset_counts()
+        got = frontend_grads(torch, cfg, to_device(p_cpu, "cuda"),
+                             batch_to(cfg, raw, "cuda"))
+        torch.cuda.synchronize()
+        counts = dict(launches)
+        rec = {"logits_max_abs_err": float((got[0].cpu() - want[0]).abs()
+                                           .max()),
+               "loss_rel_err": abs(float(got[1]) / float(want[1]) - 1),
+               "grad_rel_err": max(float((g.cpu() - w).norm()
+                                         / max(float(w.norm()), 1e-30))
+                                   for g, w in zip(got[2], want[2])),
+               "launches": counts}
+        if not (rec["logits_max_abs_err"] <= 1e-4
+                and rec["loss_rel_err"] <= 1e-5
+                and rec["grad_rel_err"] <= 1e-4) or any(counts.values()):
+            raise AssertionError(f"frontends (a) {arch}: card vs CPU {rec}")
+        out[arch] = rec
+        log(f"  (a) {arch} smoke {b} x {s}: card vs CPU logits max abs err "
+            f"{rec['logits_max_abs_err']:.3g}, loss rel err "
+            f"{rec['loss_rel_err']:.3g}, gradients rel err (worst leaf) "
+            f"{rec['grad_rel_err']:.3g}; launches {counts}")
+    return out
+
+
+def frontend_full(torch, launches, arch) -> dict:
+    """(b), (c) One frontend at full width and depth, seeded weights on
+    the card: the forward over FRONTEND_SHAPE positions of the driver's
+    batch (after a warm-up at 1024), finite logits; internvl2-2b also
+    ``lm_serve.generate`` at LM_SERVE; then FRONTEND_TRAIN_STEPS
+    ``TrainStep`` steps on the driver's batches of steps 0, 1, finite
+    losses and gradient norms."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch import lm_serve
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.launch.train import batch_to, train_batch
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+
+    cfg = get_config(arch)
+    b, s = FRONTEND_SHAPE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    torch.cuda.synchronize()
+    rec = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "init_s": time.perf_counter() - t0,
+           "params": sum(w.numel() for v in params.values() for w in (
+               v.values() if isinstance(v, dict) else [v])),
+           "state_gb": torch.cuda.memory_allocated() / 1e9}
+    data = SyntheticLM(cfg.vocab, s, b, seed=0)
+
+    def batch(step, seq=s, d=data):
+        return batch_to(cfg, train_batch(cfg, d, step, b, seq), "cuda")
+
+    def inputs(bt):
+        return {k: v for k, v in bt.items() if k != "targets"}
+
+    reset_counts()
+    with torch.inference_mode():
+        M.forward(cfg, params, inputs(batch(0, 1024, SyntheticLM(
+            cfg.vocab, 1024, b, seed=0))))                      # warm-up
+        fwd = inputs(batch(0))
+        torch.cuda.synchronize()
+        with EventSpans(torch, L, ("chunked_attention",)) as ev:
+            t0 = time.perf_counter()
+            logits, _ = M.forward(cfg, params, fwd)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            attn_ms = ev.ms("chunked_attention")
+        ok = logits.shape == (b, s, cfg.vocab) and \
+            bool(torch.isfinite(logits).all())
+        del logits, fwd
+    if not ok:
+        raise AssertionError(f"frontends {arch}: forward logits not finite "
+                             f"or not {(b, s, cfg.vocab)}")
+    rec["forward"] = {"batch": b, "positions": s, "seconds": fwd_s,
+                      "positions_per_s": b * s / fwd_s,
+                      "attention_ms": attn_ms,
+                      "attention_share": attn_ms / 1e3 / fwd_s,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    if cfg.frontend == "patches":
+        rec["forward"]["patches"] = cfg.n_patches
+    log(f"  {arch} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{rec['params'] / 1e9:.3f} B parameters, {rec['state_gb']:.2f} GB, "
+        f"init {rec['init_s']:.2f} s): forward {b} x {s} "
+        + (f"({cfg.n_patches} patches + {s - cfg.n_patches} tokens) "
+           if cfg.frontend == "patches" else "frames ")
+        + f"{fwd_s:.3f} s ({b * s / fwd_s:.1f} positions/s), plain "
+        f"chunked_attention {attn_ms:.1f} ms (share "
+        f"{rec['forward']['attention_share']:.3f}), max_memory_allocated "
+        f"{rec['forward']['peak_mem_gb']:.2f} GB")
+
+    if not cfg.is_encoder_only:
+        bs, plen, n_gen = LM_SERVE
+        prompts = np.random.default_rng(3).integers(
+            0, cfg.vocab, (bs, plen)).astype(np.int32)
+        lm_serve.generate(cfg, params, prompts[:, :2], 2, 4)     # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = lm_serve.generate(cfg, params, prompts, n_gen, plen + n_gen)
+        serve_s = time.perf_counter() - t0
+        if toks.shape != (bs, n_gen) or not ((toks >= 0).all()
+                                             and (toks < cfg.vocab).all()):
+            raise AssertionError(f"frontends {arch}: generate gave "
+                                 f"{toks.shape} tokens outside [0, "
+                                 f"{cfg.vocab})")
+        rec["serve"] = {"batch": bs, "prompt": plen, "gen": n_gen,
+                        "seconds": serve_s,
+                        "tokens_per_s": bs * n_gen / serve_s,
+                        "sample": toks[0].tolist()}
+        log(f"    generate batch {bs} prompt {plen} gen {n_gen}: "
+            f"{serve_s:.3f} s, {bs * n_gen / serve_s:.1f} tokens/s")
+
+    torch.cuda.reset_peak_memory_stats()
+    opt = adamw_init(params)
+    step = TrainStep(cfg, peak_lr=3e-4, warmup=1,
+                     total_steps=FRONTEND_TRAIN_STEPS + 1).step_fn(
+        ShapeSpec("train_8k", "train", s, b))
+    rows = []
+    for i in range(FRONTEND_TRAIN_STEPS):
+        bt = batch(i)
+        torch.cuda.synchronize()
+        with EventSpans(torch, L, ("chunked_attention",)) as ev:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, bt)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            attn_ms = ev.ms("chunked_attention")
+        rows.append({"step": i + 1, "seconds": sec,
+                     "positions_per_s": b * s / sec,
+                     "attention_fwd_ms": attn_ms,
+                     "loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"])})
+        log(f"    train step {i + 1}: {sec:.3f} s "
+            f"({b * s / sec:.1f} positions/s; chunked_attention forward "
+            f"and remat recompute {attn_ms:.1f} ms), loss "
+            f"{rows[-1]['loss']:.4f}, grad_norm {rows[-1]['grad_norm']:.4f}, "
+            f"lr {rows[-1]['lr']:.3g}")
+    rec["train"] = {"batch": b, "positions": s, "steps": rows,
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    rec["launches"] = dict(launches)
+    del params, opt, m
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in rows):
+        raise AssertionError(f"frontends {arch}: train steps {rows}")
+    if any(rec["launches"].values()):
+        raise AssertionError(f"frontends {arch}: window-free, yet launched "
+                             f"{rec['launches']}")
+    log(f"    train max_memory_allocated {rec['train']['peak_mem_gb']:.2f} GB")
+    return rec
+
+
+def frontends_phase(torch, launches) -> dict:
+    """Phase frontends: (a) the smoke configs card against CPU; (b)
+    hubert-xlarge and (c) internvl2-2b at full width and depth."""
+    out = {"smoke": frontends_smoke(torch, launches)}
+    for arch in FRONTEND_ARCHS:
+        out[arch] = frontend_full(torch, launches, arch)
+    out["launches"] = {k: 0 for k in launches}
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase dp: the data-parallel train step on gloo ranks
+# ---------------------------------------------------------------------------
+
+#: ranks (the mesh's data axis; model axis 1), layers of h2o-danube3-4b at
+#: full width, tokens a row; one row a rank
+DP_RANKS, DP_LAYERS, DP_SEQ = 2, 2, 8192
+#: bound on the worst leaf's relative Frobenius error of the averaged bf16
+#: gradient against the one-device gradient of the whole batch (PERF.md
+#: §4): each rank's gradient, the average and the activations of an
+#: 8192-row product against a 16384-row one each round to bf16 (2**-9)
+DP_GRAD_BOUND = 2e-2
+
+
+def _rel_errs(got, want) -> tuple:
+    """(worst leaf, all leaves) relative Frobenius errors, float32 sums."""
+    worst, num, den = 0.0, 0.0, 0.0
+    for g, w in zip(got, want):
+        d2 = float((g.float() - w.float()).square().sum())
+        w2 = float(w.float().square().sum())
+        worst = max(worst, (d2 / max(w2, 1e-60)) ** 0.5)
+        num, den = num + d2, den + w2
+    return worst, (num / den) ** 0.5
+
+
+def dp_rank(rank: int, p: int) -> dict:
+    """One rank of phase dp: the averaged gradient of its row, held by
+    rank 0 against the one-device gradient of the whole batch (and its own
+    row's, the control); then one ``TrainStep`` step, timed, and its
+    parameters and moments against rank 0's."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import _slabs, tree_leaves
+
+    prebuilt_only()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh("cpu", (p, 1), mesh_dim_names=("data", "model"))
+    cfg = get_config(LM_ARCH).scaled(n_layers=DP_LAYERS)
+    params = M.init_params(cfg, torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    data = SyntheticLM(cfg.vocab, DP_SEQ, p, seed=0)
+    mine = batch_to(cfg, data.batch_at(0, rank, p), "cuda")
+    shape = ShapeSpec("dp", "train", DP_SEQ, p)
+    dp = TrainStep(cfg, mesh, peak_lr=3e-4, warmup=1, total_steps=3)
+    want = {"block_attention": 2 * DP_LAYERS,
+            "block_attention_bwd": DP_LAYERS}
+
+    def launched(what):
+        counts, designs = phase_launches().values()
+        if any(counts[k] != n or designs[k]["wgmma"] != n
+               for k, n in want.items()):
+            raise AssertionError(f"dp rank {rank} {what}: launched {counts} "
+                                 f"({designs}), not {want} on wgmma")
+        return counts
+
+    out = {"rank": rank}
+    reset_counts()
+    loss, _, grads = dp.grads_fn(shape)(params, mine)
+    torch.cuda.synchronize()
+    out["grads_launches"] = launched("gradient")
+    out["loss"] = float(loss)
+    if rank == 0:
+        one = TrainStep(cfg)
+        loss1, _, g1 = one.grads_fn(shape)(
+            params, batch_to(cfg, data.batch_at(0), "cuda"))
+        out["loss_one_device"] = float(loss1)
+        out["grad_rel_err"], out["grad_rel_err_all"] = _rel_errs(
+            tree_leaves(grads), tree_leaves(g1))
+        _, _, own = one.grads_fn(ShapeSpec("dp1", "train", DP_SEQ, 1))(
+            params, mine)
+        out["no_allreduce_rel_err"], out["no_allreduce_rel_err_all"] = \
+            _rel_errs(tree_leaves(own), tree_leaves(g1))
+        del g1, own
+    del grads
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    opt = adamw_init(params)
+    dp.comm_bytes, dp.comm_seconds = 0, 0.0
+    reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    params, opt, m = dp.step_fn(shape)(params, opt, mine)
+    torch.cuda.synchronize()
+    out.update(step_s=time.perf_counter() - t0, comm_s=dp.comm_seconds,
+               comm_bytes=dp.comm_bytes, step_loss=float(m["loss"]),
+               grad_norm=float(m["grad_norm"]),
+               step_launches=launched("step"),
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    diff = torch.zeros(())
+    for t in tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v):
+        for (ts,) in _slabs(t):
+            mine_h = ts.cpu()
+            ref = mine_h.clone()
+            dist.broadcast(ref, 0)
+            diff = torch.maximum(diff, (mine_h.float() - ref.float()).abs()
+                                 .max())
+    dist.all_reduce(diff, op=dist.ReduceOp.MAX)
+    out["across_ranks_max_diff"] = float(diff)
+    return out
+
+
+def dp_phase(torch) -> dict:
+    """Phase dp: DP_RANKS gloo ranks sharing ``cuda:0`` on the mesh (data
+    DP_RANKS, model 1), h2o-danube3-4b at full width and DP_LAYERS layers,
+    one row of DP_SEQ tokens a rank: the averaged gradient within
+    DP_GRAD_BOUND of the one-device gradient of the whole batch, which the
+    rank's own gradient (no all-reduce) must miss; then one step whose
+    parameters and moments are equal on every rank."""
+    from repro_torch.launch.mesh import launch_ranks
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = launch_ranks(dp_rank, DP_RANKS, timeout=RANK_TIMEOUT)
+    r0 = res[0]
+    out = {"ranks": res, "wall_s": time.perf_counter() - t0,
+           "bound": DP_GRAD_BOUND,
+           "launches": {k: sum(r["grads_launches"][k] + r["step_launches"][k]
+                               for r in res) for k in r0["step_launches"]}}
+    log(f"  {DP_RANKS} gloo ranks on cuda:0, (data {DP_RANKS}, model 1), "
+        f"{LM_ARCH} {DP_LAYERS} layers, {DP_RANKS} x {DP_SEQ} tokens: loss "
+        f"{[round(r['loss'], 6) for r in res]} (one device "
+        f"{r0['loss_one_device']:.6f}); averaged gradient rel err, worst "
+        f"leaf {r0['grad_rel_err']:.3g} (all leaves "
+        f"{r0['grad_rel_err_all']:.3g}), bound {DP_GRAD_BOUND}; without the "
+        f"all-reduce {r0['no_allreduce_rel_err']:.3g} (all "
+        f"{r0['no_allreduce_rel_err_all']:.3g})")
+    log(f"    step s {[round(r['step_s'], 4) for r in res]}, all-reduce s "
+        f"{[round(r['comm_s'], 4) for r in res]}, bytes "
+        f"{[r['comm_bytes'] for r in res]} a rank; loss "
+        f"{r0['step_loss']:.6f}, grad_norm {r0['grad_norm']:.6f}; params "
+        f"and moments max diff across ranks "
+        f"{max(r['across_ranks_max_diff'] for r in res)}; launches "
+        f"{out['launches']}; max_memory_allocated "
+        f"{[round(r['peak_mem_gb'], 2) for r in res]} GB; wall_s="
+        f"{out['wall_s']:.3f} (ranks share one card: counts, no multi-GPU "
+        f"speed)")
+    if not r0["grad_rel_err"] <= DP_GRAD_BOUND:
+        raise AssertionError(f"dp: averaged gradient rel err "
+                             f"{r0['grad_rel_err']} over {DP_GRAD_BOUND}")
+    if not r0["no_allreduce_rel_err"] > DP_GRAD_BOUND:
+        raise AssertionError(f"dp: the control without the all-reduce "
+                             f"({r0['no_allreduce_rel_err']}) meets the bound")
+    if any(r["across_ranks_max_diff"] != 0.0 for r in res):
+        raise AssertionError("dp: the ranks' parameters or moments differ")
+    if not all(np.isfinite(r["step_loss"]) and np.isfinite(r["grad_norm"])
+               and r["comm_bytes"] > 0 for r in res):
+        raise AssertionError(f"dp: step records {res}")
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase trace: one full-width train step under the profiler
 # ---------------------------------------------------------------------------
 
@@ -3216,6 +3618,21 @@ def main() -> int:
     total = {k: total[k] + families["launches"][k] for k in _build.KERNELS}
     log(f"  families_s={families['families_s']:.3f} launches={total}")
 
+    log("phase frontends: hubert-xlarge and internvl2-2b")
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    frontends = frontends_phase(torch, _build.LAUNCHES)
+    frontends["frontends_s"] = time.perf_counter() - t0
+    total = {k: total[k] + frontends["launches"][k] for k in _build.KERNELS}
+    log(f"  frontends_s={frontends['frontends_s']:.3f} launches={total}")
+
+    log("phase dp: the data-parallel train step on gloo ranks")
+    t0 = time.perf_counter()
+    dp = dp_phase(torch)
+    dp["dp_s"] = time.perf_counter() - t0
+    total = {k: total[k] + dp["launches"].get(k, 0) for k in _build.KERNELS}
+    log(f"  dp_s={dp['dp_s']:.3f} launches={total}")
+
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3253,7 +3670,9 @@ def main() -> int:
     log("record: " + json.dumps({"card": card, "phases": phases,
                                  "bs8_wave": bs8, "sim": sim,
                                  "solvers": solvers, "mesh": mesh,
-                                 "families": families, "serve": serve,
+                                 "families": families,
+                                 "frontends": frontends, "dp": dp,
+                                 "serve": serve,
                                  "trace": trace,
                                  "smoke_s": elapsed}))
     log(card)

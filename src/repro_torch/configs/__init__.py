@@ -2,9 +2,6 @@
 
 One module per architecture (exact configs from the task brief, sources in
 each file's docstring).  ``--arch <id>`` in the launchers resolves here.
-The port has the dense, MoE, SSM and hybrid architectures; the audio and
-VLM ids raise ``NotImplementedError`` naming the ROADMAP.md item that
-ports their frontends.
 """
 from __future__ import annotations
 
@@ -37,21 +34,10 @@ ALIASES = {
     "internvl2-2b": "internvl2_2b",
 }
 
-#: ids whose family the port does not run yet -> the family's ROADMAP item
-NOT_PORTED = {
-    "hubert_xlarge": "audio frontend",
-    "internvl2_2b": "VLM frontend",
-}
-
-
 def _module(arch: str):
     arch = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch}: the {NOT_PORTED[arch]} family is not ported yet "
-            f"(ROADMAP.md, queue 1 item 8: LM substrate)")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

@@ -72,7 +72,9 @@ class SyntheticLM:
 
 
 def make_batch_specs(cfg, shape, mesh, batch_axes: tuple) -> dict:
-    """Not ported: batch shardings belong to the sharded LM."""
-    raise NotImplementedError(
-        "make_batch_specs (batch shardings over a device mesh) is not ported "
-        "yet: ROADMAP.md queue 1 item 8 (sharding)")
+    """An ``InputSpec`` for each batch field, the batch dim over the data
+    axes (``mesh`` is the reference's argument; the spec names its axes
+    only)."""
+    from repro_torch.models.config import input_specs
+    entry = batch_axes if len(batch_axes) > 1 else batch_axes[0]
+    return input_specs(cfg, shape, batch_spec=(entry,))

@@ -21,6 +21,7 @@ import shutil
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
@@ -33,6 +34,40 @@ from repro_torch.models.config import ShapeSpec
 from repro_torch.optim import adamw_init
 from repro_torch.runtime import (FaultInjector, HeartbeatMonitor,
                                  TrainingRunner)
+
+
+def train_batch(cfg, data: SyntheticLM, step: int, batch: int,
+                seq: int) -> dict:
+    """The driver's batch at ``step`` as numpy arrays, before the cast
+    (:func:`batch_to`): token batches from ``data``; the audio frontend's
+    frames and targets, and the VLM frontend's patches, drawn from
+    ``np.random.default_rng(step)``, the VLM's text cut to its first
+    ``seq - n_patches`` tokens, as the reference's driver does."""
+    if cfg.frontend == "frames":
+        rng = np.random.default_rng(step)
+        return {
+            "frames": rng.standard_normal((batch, seq, cfg.d_model)),
+            "targets": rng.integers(0, cfg.vocab, (batch, seq)),
+        }
+    b = data.batch_at(step)
+    if cfg.frontend == "patches":
+        rng = np.random.default_rng(step)
+        s_text = seq - cfg.n_patches
+        return {
+            "tokens": b["tokens"][:, :s_text],
+            "patches": rng.standard_normal(
+                (batch, cfg.n_patches, cfg.d_model)),
+            "targets": b["targets"][:, :s_text],
+        }
+    return b
+
+
+def batch_to(cfg, batch: dict, device) -> dict:
+    """A numpy batch as tensors on ``device``: float fields in the
+    config's type, integer fields int32 (the reference's casts)."""
+    return {k: torch.as_tensor(
+        v, dtype=cfg.torch_dtype if np.issubdtype(v.dtype, np.floating)
+        else torch.int32, device=device) for k, v in batch.items()}
 
 
 def main(argv=None) -> int:
@@ -81,8 +116,8 @@ def main(argv=None) -> int:
         if args.drill_fail_step else None
 
     def batch_fn(step):
-        return {k: torch.as_tensor(v, device=device)
-                for k, v in data.batch_at(step).items()}
+        return batch_to(cfg, train_batch(cfg, data, step, args.batch,
+                                         args.seq), device)
 
     def run_step(state, batch):
         t0 = time.time()

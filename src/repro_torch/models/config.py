@@ -4,12 +4,14 @@ architectures (dense / MoE / SSM / hybrid / audio / VLM LM-family).
 The per-arch configs live in ``repro_torch/configs/<id>.py``; this module
 defines the schema and the four assigned input shapes.  A copy of the
 reference's ``repro/models/config.py`` with ``jdtype`` replaced by
-``torch_dtype``; ``input_specs`` (shape stand-ins for the dry run) waits
-for the dry-run item of ROADMAP.md.
+``torch_dtype``; ``input_specs`` returns :class:`InputSpec` named tuples
+(shape, torch dtype, batch-axis spec) where the reference returns
+``jax.ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -168,3 +170,49 @@ def applicable_shapes(cfg: ModelConfig) -> list[ShapeSpec]:
         if cfg.mixer in ("mamba1", "mamba2") or cfg.swa_window:
             out.append(LONG_500K)
     return out
+
+
+class InputSpec(NamedTuple):
+    """Stand-in for one model input: no allocation.  ``spec`` is the
+    partition spec of the input's dims over mesh axis names (the batch
+    dim's entry first), or ``None`` when no sharding was asked for."""
+    shape: tuple
+    dtype: torch.dtype
+    spec: Optional[tuple] = None
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, *,
+                batch_spec: Optional[tuple] = None) -> dict:
+    """An :class:`InputSpec` for every model input (no allocation).
+
+    train:   {tokens, targets} (or frames/patches for stub frontends)
+    prefill: {tokens}
+    decode:  the new-token batch only, as in the reference.
+
+    Frames and patches are bfloat16 whatever the config's type, token
+    fields int32; a patches prefill has no ``targets``.  ``batch_spec``
+    (for example ``(("pod", "data"),)``) is every field's spec.
+    """
+    b, s = shape.global_batch, shape.seq_len
+
+    def arr(shp, dt=torch.int32):
+        return InputSpec(shp, dt, batch_spec)
+
+    if cfg.frontend == "frames" and shape.kind in ("train", "prefill"):
+        return {
+            "frames": arr((b, s, cfg.d_model), torch.bfloat16),
+            "targets": arr((b, s)),
+        }
+    if cfg.frontend == "patches":
+        s_text = s - cfg.n_patches
+        base = {
+            "tokens": arr((b, s_text)),
+            "patches": arr((b, cfg.n_patches, cfg.d_model), torch.bfloat16),
+        }
+        if shape.kind == "train":
+            base["targets"] = arr((b, s_text))
+        return base
+    base = {"tokens": arr((b, s))}
+    if shape.kind == "train":
+        base["targets"] = arr((b, s))
+    return base

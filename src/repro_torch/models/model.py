@@ -10,7 +10,7 @@ One parameter schema + three entry points:
 * ``decode_step``  — one token with KV / SSM caches (serve path).
 
 Families:
-  dense               : attention + (Swi)GLU blocks, uniform stack
+  dense / audio / vlm : attention + (Swi)GLU blocks, uniform stack
   moe                 : attention + MoE FFN (capacity-bounded dispatch)
   ssm (mamba1)        : pure Mamba1 blocks, no attention anywhere
   hybrid (mamba2)     : Mamba2 stack with ONE shared attention+MLP block
@@ -21,9 +21,9 @@ Parameters are a nested dict of tensors with the reference's keys and
 layouts; the layers are stacked along a leading L axis (``(groups,
 attn_every)`` for the hybrid) and run in a Python loop.
 :func:`params_from_numpy` and :func:`adamw_state_from_numpy` carry the
-reference's parameters and optimizer state across.  The frame and patch
-frontends (the audio and VLM families) raise ``NotImplementedError``
-naming ROADMAP.md queue 1 item 8.
+reference's parameters and optimizer state across.  The audio and VLM
+frontends are the reference's stubs: the batch carries precomputed frame
+or patch embeddings (:func:`_embed_inputs`).
 """
 from __future__ import annotations
 
@@ -42,17 +42,6 @@ from . import ssm
 from .config import ModelConfig
 
 Params = dict
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, queue 1 item 8: LM "
-        f"substrate)")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.frontend != "tokens":
-        raise _not_ported(f"the {cfg.frontend} frontend")
 
 
 # ---------------------------------------------------------------------------
@@ -107,11 +96,12 @@ def _mamba2_shapes(cfg: ModelConfig, lead: tuple) -> dict:
 
 def param_shapes(cfg: ModelConfig) -> dict:
     """Nested dict of parameter shapes (schema single source of truth)."""
-    _check_family(cfg)
     d = cfg.d_model
     shapes: dict = {"embed": (cfg.vocab, d), "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["unembed"] = (cfg.vocab, d)
+    if cfg.frontend == "patches":
+        shapes["patch_proj"] = (d, d)
 
     if cfg.family == "hybrid":
         lead = (cfg.n_layers // cfg.attn_every, cfg.attn_every)
@@ -343,25 +333,47 @@ def _run(recompute: bool, fn, *args):
     return fn(*args)
 
 
+def _embed_inputs(cfg: ModelConfig, params: Params, batch: dict
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (x (B,S,d) in the config's type, positions (B,S)).
+
+    The frontends are the reference's stubs: frames (B, S, d) are the
+    input itself; patches (B, n_patches, d) go through ``patch_proj`` and
+    come before the embedded text tokens.  Positions run over all of S."""
+    embed = params["embed"]
+    dev, dtype = embed.device, cfg.torch_dtype
+
+    def field(name):
+        return torch.as_tensor(batch[name], device=dev)
+
+    if cfg.frontend == "frames":
+        x = field("frames")
+    else:
+        x = embed[field("tokens").long()]
+        if cfg.frontend == "patches":
+            pat = field("patches").to(dtype) @ params["patch_proj"]
+            x = torch.cat([pat, x], dim=1)
+    b, s, _ = x.shape
+    return x.to(dtype), torch.arange(s, device=dev).expand(b, s)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: dict,
             remat: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits. Returns (logits (B,S,V), aux_loss).
 
-    ``batch["tokens"]``: (B, S) integer token ids.  With ``remat`` and
-    gradients on, each layer keeps only its input for the backward pass and
-    is run again there (``torch.utils.checkpoint``, non-reentrant), as the
-    reference's ``jax.checkpoint`` around each layer body (the hybrid: each
-    group, and each mamba layer inside it): on the window path the
-    attention kernel then launches twice a layer and step.  Without
+    ``batch``: ``tokens`` (B, S) integer token ids; the audio frontend
+    takes ``frames`` (B, S, d) instead, the VLM frontend ``patches`` (B,
+    n_patches, d) besides ``tokens`` (B, S - n_patches).  With ``remat``
+    and gradients on, each layer keeps only its input for the backward
+    pass and is run again there (``torch.utils.checkpoint``,
+    non-reentrant), as the reference's ``jax.checkpoint`` around each
+    layer body (the hybrid: each group, and each mamba layer inside it):
+    on the window path the attention kernel then launches twice a layer
+    and step.  Without
     gradients (``torch.inference_mode()``, the prefill) ``remat`` changes
     nothing.
     """
-    _check_family(cfg)
-    embed = params["embed"]
-    tokens = torch.as_tensor(batch["tokens"], device=embed.device).long()
-    x = embed[tokens].to(cfg.torch_dtype)
-    b, s, _ = x.shape
-    positions = torch.arange(s, device=x.device).expand(b, s)
+    x, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), device=x.device)
     recompute = remat and torch.is_grad_enabled()
     if cfg.family == "hybrid":
@@ -395,9 +407,12 @@ def _hybrid_stack(cfg: ModelConfig, params: Params, x: torch.Tensor,
 def loss_fn(cfg: ModelConfig, params: Params, batch: dict,
             remat: bool = True) -> tuple[torch.Tensor, dict]:
     """Mean next-token negative log-likelihood (+ 0.01 aux).  Returns
-    (loss, {"nll", "aux"}); ``batch["targets"]``: (B, S) token ids."""
+    (loss, {"nll", "aux"}); ``batch["targets"]``: (B, S) token ids, over
+    the text positions only for the VLM frontend."""
     logits, aux = forward(cfg, params, batch, remat=remat)
     targets = torch.as_tensor(batch["targets"], device=logits.device).long()
+    if cfg.frontend == "patches":
+        logits = logits[:, cfg.n_patches:]        # loss on text positions
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, targets[..., None])[..., 0]
     loss = nll.mean() + 0.01 * aux
@@ -418,7 +433,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     SWA archs keep the full length too, as the reference's code does (its
     comment speaks of a ring buffer of ``window`` entries; the code keeps
     ``max_len``)."""
-    _check_family(cfg)
     device = resolve_device(device)
 
     def mk(shape, dtype=cfg.torch_dtype):
@@ -498,7 +512,6 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
     returns a new cache, the port writes the new position (and the SSM
     layers' new states) into ``cache`` in place and returns it.
     """
-    _check_family(cfg)
     embed = params["embed"]
     token = torch.as_tensor(token, device=embed.device).long()
     pos = int(pos)

@@ -6,8 +6,8 @@ Submodules are imported lazily (PEP 562): the Chunks-and-Tasks scheduler
 importable — and fast to import — without torch's CUDA context.
 `compression` (int8 gradient round trip, torch ops) and `fault`
 (heartbeats, failure injection, the restartable ``TrainingRunner``) run
-on either device.  Elastic remeshing (`elastic` in the reference) is not
-ported yet: its names raise :class:`NotImplementedError` naming ROADMAP.md
+on either device.  `elastic` plans a smaller mesh after failures; its
+``reshard_tree`` raises :class:`NotImplementedError` naming ROADMAP.md
 queue 1 item 7.
 """
 _EXPORTS = {
@@ -36,19 +36,16 @@ _EXPORTS = {
     "FaultInjector": ("fault", "FaultInjector"),
     "HeartbeatMonitor": ("fault", "HeartbeatMonitor"),
     "TrainingRunner": ("fault", "TrainingRunner"),
+    # elastic remeshing
+    "RemeshPlan": ("elastic", "RemeshPlan"),
+    "elastic_remesh_plan": ("elastic", "elastic_remesh_plan"),
+    "reshard_tree": ("elastic", "reshard_tree"),
 }
-
-#: elastic remeshing of the training loop: not ported yet
-_NOT_PORTED = ("elastic_remesh_plan", "reshard_tree")
 
 __all__ = list(_EXPORTS)
 
 
 def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"repro_torch.runtime.{name} is not ported yet (ROADMAP.md, "
-            f"queue 1 item 7: runtime/elastic.py)")
     try:
         mod_name, attr = _EXPORTS[name]
     except KeyError:

@@ -847,3 +847,41 @@ def test_bsmm_on_the_card_matches_the_cpu(cuda_device, use_pair_kernel):
     assert n_card == n_cpu
     assert _within(got, want)
     np.testing.assert_allclose(got.numpy(), a @ a, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["hubert_xlarge", "internvl2_2b"])
+def test_frontend_gradients_on_the_card_match_the_cpu(cuda_device, arch):
+    """``TrainStep``'s loss and unclipped gradients of the audio (frames)
+    and VLM (patches and text) smoke configs on the driver's batch, card
+    against CPU: the loss within 1e-5, each gradient leaf within 1e-4
+    relative Frobenius (float32 sums in other orders), then one step's
+    gradient norm within 1e-5.  Parameters after the step are not
+    compared: AdamW's first update is about ``lr * sign(g)``, which flips
+    where g is near zero.  Window-free, so no kernel launches."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.launch.train import batch_to, train_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+    cfg = get_smoke_config(arch)
+    raw = train_batch(cfg, SyntheticLM(cfg.vocab, 64, 2, seed=0), 0, 2, 64)
+    builder = TrainStep(cfg, peak_lr=1e-2, warmup=1, total_steps=10)
+    shape = ShapeSpec("t", "train", 64, 2)
+    res = []
+    before = dict(ops.LAUNCHES)
+    for dev in ("cpu", cuda_device):
+        params = _to(M.init_params(cfg, torch.Generator().manual_seed(0),
+                                   device="cpu"), dev)
+        batch = batch_to(cfg, raw, dev)
+        loss, _, grads = builder.grads_fn(shape)(params, batch)
+        _, _, m = builder.step_fn(shape)(params, adamw_init(params), batch)
+        res.append((float(loss), tree_leaves(grads), float(m["grad_norm"])))
+    assert ops.LAUNCHES == before
+    (want, wg, wn), (got, gg, gn) = res
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    np.testing.assert_allclose(gn, wn, rtol=1e-5)
+    for g, w in zip(gg, wg):
+        assert float((g.cpu() - w).norm() / w.norm().clamp_min(1e-30)) <= 1e-4

@@ -360,9 +360,9 @@ class TestEngineContract:
             g.flush()
 
     def test_simulator_not_ported(self):
-        """The simulator is ported (``ClusterSim`` runs), and so is the
-        training loop's fault injection; elastic remeshing is not, and says
-        where it is queued."""
+        """The simulator is ported (``ClusterSim`` runs), and so are the
+        training loop's fault injection and elastic planning; moving a
+        tree onto a new mesh is not, and says where it is queued."""
         g = PORT.CTGraph(engine="numpy")
         p = PORT.QTParams(32, 16, 4)
         r = PORT.qt_from_dense(g, np.eye(32), p)
@@ -370,5 +370,7 @@ class TestEngineContract:
         assert t_tasks.ClusterSim(4).run(g).n_tasks == len(g.nodes)
         import repro_torch.runtime as rt
         assert rt.FaultInjector({3: 0}).schedule == [(3, 0)]
+        assert rt.elastic_remesh_plan((16, 16), ("data", "model"),
+                                      5).microbatch_scale == 2
         with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-            rt.reshard_tree
+            rt.reshard_tree({}, None, None)

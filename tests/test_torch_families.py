@@ -240,6 +240,50 @@ def test_mixer_forward_matches_reference(mixer, s, chunk):
     np.testing.assert_allclose(_np(got), _np(want), atol=SSM_ATOL)
 
 
+#: the mixers' weights the model holds in its own type (``init_params``
+#: keeps dt_bias, A_log, D and the norms float32)
+_MIXER_WEIGHTS = ("in_proj", "conv", "x_proj", "dt_proj", "out_proj")
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("mixer", ["mamba1", "mamba2"])
+def test_mixer_forward_bfloat16_matches_reference(mixer, seed):
+    """bf16 input and weights, S = 256 in chunks of 64, as the card runs
+    the mixers: the port within twice the reference's own distance (max
+    abs) from the float32 reference on the same bf16 values, both from the
+    reference and from that float32 result."""
+    rng = np.random.default_rng(seed)
+    u = rng.standard_normal((2, 256, 8)).astype(np.float32)
+    if mixer == "mamba1":
+        p, n = _mamba1_params(rng)
+        kw = dict(state=n)
+    else:
+        p, n, hd = _mamba2_params(rng)
+        kw = dict(state=n, head_dim=hd)
+    jb = {k: jnp.asarray(v, jnp.bfloat16 if k in _MIXER_WEIGHTS
+                         else jnp.float32) for k, v in p.items()}
+    tb = {k: _from_jax(v) for k, v in jb.items()}
+    ju = jnp.asarray(u, jnp.bfloat16)
+    fwd, jfwd = getattr(ssm, f"{mixer}_forward"), \
+        getattr(jssm, f"{mixer}_forward")
+    got = fwd(tb, _from_jax(ju), chunk=64, **kw)
+    want = jfwd(jb, ju, chunk=64, **kw)
+    f32 = jfwd({k: v.astype(jnp.float32) for k, v in jb.items()},
+               ju.astype(jnp.float32), chunk=64, **kw)
+    assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+    tol = 2 * float(np.abs(_np(want) - _np(f32)).max())
+    assert float(np.abs(_np(got) - _np(want)).max()) <= tol
+    assert float(np.abs(_np(got) - _np(f32)).max()) <= tol
+
+
+def _from_jax(x) -> torch.Tensor:
+    """A jax array as a CPU tensor of its type (bf16 by its bits)."""
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
 @pytest.mark.parametrize("mixer", ["mamba1", "mamba2"])
 def test_mixer_step_matches_reference(mixer):
     """Twelve decode steps from a random state: outputs and both states."""

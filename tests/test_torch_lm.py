@@ -36,6 +36,8 @@ from repro_torch.models import model as M  # noqa: E402
 DENSE = ["h2o_danube3_4b", "llama3_2_3b", "olmo_1b", "stablelm_12b"]
 #: the MoE, SSM and hybrid families
 FAMILIES = ["phi3_5_moe", "mixtral_8x7b", "falcon_mamba_7b", "zamba2_2_7b"]
+#: the audio (frames) and VLM (patches) frontends
+FRONTENDS = ["hubert_xlarge", "internvl2_2b"]
 
 #: float32 agreement of two float32 implementations that sum in other
 #: orders (einsum vs lax.dot, a Python loop vs lax.scan)
@@ -291,18 +293,31 @@ def _tokens(cfg, b, s, seed=2):
         0, cfg.vocab, (b, s)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", DENSE + FAMILIES)
+def _inputs(cfg, b, s, seed=2):
+    """A forward batch of S positions: tokens; frames (B, S, d) for the
+    audio frontend; patches and S - n_patches tokens for the VLM."""
+    rng = np.random.default_rng(seed + 100)
+    if cfg.frontend == "frames":
+        return {"frames": _rand(rng, (b, s, cfg.d_model))}
+    if cfg.frontend == "patches":
+        return {"tokens": _tokens(cfg, b, s - cfg.n_patches, seed),
+                "patches": _rand(rng, (b, cfg.n_patches, cfg.d_model))}
+    return {"tokens": _tokens(cfg, b, s, seed)}
+
+
+@pytest.mark.parametrize("arch", DENSE + FAMILIES + FRONTENDS)
 @pytest.mark.parametrize("s", [64, 16])
 def test_forward_matches_reference(arch, s, monkeypatch):
     """S = 64 takes the window path for h2o and mixtral (window 32 < 64)
     through ``ops.banded_attention`` once a layer, S = 16 the chunked path
-    for every config; the MoE aux loss equals the reference's (0 for the
-    other families)."""
+    for every config (hubert's bidirectional); the MoE aux loss equals the
+    reference's (0 for the other families)."""
     cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
     jp, tp = _params(arch)
-    tokens = _tokens(cfg, 2, s)
-    want, jaux = JM.forward(jcfg, jp, {"tokens": jnp.asarray(tokens)},
+    inputs = _inputs(cfg, 2, s)
+    want, jaux = JM.forward(jcfg, jp, {k: jnp.asarray(v)
+                                       for k, v in inputs.items()},
                             remat=False)
     real, band = ops.banded_attention, []
 
@@ -311,7 +326,8 @@ def test_forward_matches_reference(arch, s, monkeypatch):
         return real(*a, **kw)
 
     monkeypatch.setattr(ops, "banded_attention", counting)
-    got, aux = M.forward(cfg, tp, {"tokens": torch.from_numpy(tokens)})
+    got, aux = M.forward(cfg, tp, {k: torch.from_numpy(v)
+                                   for k, v in inputs.items()})
     windowed = bool(cfg.swa_window) and cfg.swa_window < s
     assert band == ([cfg.swa_window] * cfg.n_layers if windowed else [])
     assert got.shape == (2, s, cfg.vocab)
@@ -320,10 +336,12 @@ def test_forward_matches_reference(arch, s, monkeypatch):
     np.testing.assert_allclose(_np(got), _np(want), atol=LOGIT_ATOL)
 
 
-@pytest.mark.parametrize("arch", DENSE + FAMILIES)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES + ["internvl2_2b"])
 def test_decode_step_and_generate_match_reference(arch):
     """Logits of every step, then every cache the config has (k and v;
-    the SSM layers' conv and ssm states), then greedy tokens exactly."""
+    the SSM layers' conv and ssm states), then greedy tokens exactly.
+    internvl2-2b decodes on text tokens alone, as the reference's
+    ``decode_step`` does (hubert-xlarge is encoder-only)."""
     cfg, jcfg = get_smoke_config(arch), jax_smoke_config(arch)
     jp, tp = _params(arch)
     tokens = _tokens(cfg, 2, 12, seed=3)
@@ -370,7 +388,7 @@ def test_decode_matches_forward_beyond_the_window():
                                atol=2e-2, rtol=1e-2)
 
 
-@pytest.mark.parametrize("arch", ["llama3_2_3b"] + FAMILIES)
+@pytest.mark.parametrize("arch", ["llama3_2_3b"] + FAMILIES + FRONTENDS)
 def test_init_params_matches_reference_schema_and_scale(arch):
     """The reference's leaves (the hybrid's ``shared`` block and its
     (groups, attn_every) stacks too), and its distributions: norms, ``D``
@@ -398,18 +416,29 @@ def test_init_params_matches_reference_schema_and_scale(arch):
 
 
 def test_unported_families_raise_naming_the_roadmap():
-    for arch in ("hubert_xlarge", "internvl2_2b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_smoke_config(arch)
+    """Every family is ported now: both frontends load under both names,
+    at the reference's full widths, and run forward on the CPU."""
+    from repro.configs import get_config as jax_config
+    for arch, alias in (("hubert_xlarge", "hubert-xlarge"),
+                        ("internvl2_2b", "internvl2-2b")):
+        cfg = get_config(alias)
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jax_config(arch))
+        smoke = get_smoke_config(arch)
+        params = M.init_params(smoke, device="cpu")
+        batch = {k: torch.from_numpy(v)
+                 for k, v in _inputs(smoke, 1, 16).items()}
+        logits, _ = M.forward(smoke, params, batch)
+        assert logits.shape == (1, 16, smoke.vocab)
+        assert torch.isfinite(logits).all()
+    assert get_config("hubert_xlarge").causal is False
+    assert get_config("internvl2_2b").n_patches == 256
     with pytest.raises(KeyError):
         get_config("no_such_arch")
     cfg = get_config("h2o-danube3-4b")
     assert (cfg.n_layers, cfg.d_model, cfg.hd, cfg.swa_window) == \
         (24, 3840, 120, 4096)
     assert cfg.torch_dtype == torch.bfloat16
-    for frontend in ("frames", "patches"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            M.init_params(cfg.scaled(frontend=frontend), device="cpu")
 
 
 def test_entry_points_default_to_the_card():

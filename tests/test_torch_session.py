@@ -205,8 +205,9 @@ class TestFacadeContract:
 
     def test_simulator_not_ported(self):
         """``simulate`` and ``reset_stats`` run now, and so do the training
-        loop's compression and fault injection; what the runtime has not
-        ported (elastic remeshing) raises and names its ROADMAP item."""
+        loop's compression, fault injection and elastic planning; what the
+        runtime has not ported (``reshard_tree``) raises and names its
+        ROADMAP item."""
         sess = repro_torch.Session(engine="numpy", leaf_n=16, bs=4)
         sess.from_dense(np.eye(32))
         assert sess.simulate(p=4).n_workers == 4
@@ -215,9 +216,10 @@ class TestFacadeContract:
                    for st in sess.scheduler.store.stats)
         import repro_torch.runtime as rt
         assert callable(rt.quantize_int8) and callable(rt.TrainingRunner)
-        for name in ("elastic_remesh_plan", "reshard_tree"):
-            with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-                getattr(rt, name)
+        assert rt.elastic_remesh_plan((4, 2), ("data", "model"),
+                                      1).new_shape == (3, 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
+            rt.reshard_tree({}, None, None)
 
     def test_metrics_source(self):
         sess = repro_torch.Session(engine=TorchEngine(device="cpu"),

@@ -90,7 +90,12 @@ def _params(arch):
 
 
 def _batch(cfg, step=0, seq=128, batch=2):
-    return SyntheticLM(cfg.vocab, seq, batch, seed=3).batch_at(step)
+    """The driver's batch (frames and patches for the frontends), float
+    fields float32 and integer fields int32."""
+    b = train.train_batch(cfg, SyntheticLM(cfg.vocab, seq, batch, seed=3),
+                          step, batch, seq)
+    return {k: v.astype(np.float32 if v.dtype.kind == "f" else np.int32)
+            for k, v in b.items()}
 
 
 def _port_loss_and_grads(cfg, tp, batch, remat=True):
@@ -99,7 +104,8 @@ def _port_loss_and_grads(cfg, tp, batch, remat=True):
             for k, v in tp.items()}
     loss, _ = M.loss_fn(cfg, live, {k: torch.from_numpy(v)
                                     for k, v in batch.items()}, remat=remat)
-    grads = torch.autograd.grad(loss, tree_leaves(live))
+    grads = torch.autograd.grad(loss, tree_leaves(live),
+                                materialize_grads=True)
     return float(loss.detach()), grads
 
 
@@ -110,7 +116,8 @@ def _port_loss_and_grads(cfg, tp, batch, remat=True):
 @pytest.mark.parametrize("arch,overrides", [
     pytest.param(a, {}, id=a) for a in (ARCH, "llama3_2_3b", "phi3_5_moe",
                                         "mixtral_8x7b", "falcon_mamba_7b",
-                                        "zamba2_2_7b")] + [
+                                        "zamba2_2_7b", "hubert_xlarge",
+                                        "internvl2_2b")] + [
     pytest.param("phi3_5_moe", {"moe_capacity_factor": 1.0},
                  id="phi3_5_moe-capacity_factor_1")])
 def test_loss_and_gradients_match_reference(arch, overrides):
@@ -121,7 +128,10 @@ def test_loss_and_gradients_match_reference(arch, overrides):
     factor 8 (the smoke configs') and at 1, where 25 and 34 of the 512
     (token, slot) pairs of the two layers are dropped; falcon-mamba and
     zamba2 run the chunked scans and zamba2's nested remat (each group,
-    each mamba layer)."""
+    each mamba layer).  hubert-xlarge trains on frames through
+    bidirectional attention (its unused ``embed`` gets zero gradients, as
+    under ``jax.grad``), internvl2-2b on patches and text with the loss
+    over the text positions."""
     cfg = get_smoke_config(arch).scaled(**overrides)
     jcfg = jax_smoke_config(arch).scaled(**overrides)
     jp, tp = _params(arch)
@@ -253,16 +263,20 @@ def test_microbatched_step_equals_the_reference_accumulation():
 
 
 def test_sharded_pieces_raise_naming_the_roadmap():
+    """What sharding step 3 ports (tensor parallelism, the sharded serve
+    and prefill) raises naming it; the spec tables, batch specs and the
+    data-parallel step run (tests/test_torch_sharding.py)."""
     cfg = get_smoke_config(ARCH)
-    for fn in (lambda: sharding.param_shardings(cfg, None),
-               lambda: sharding.zero1_shardings(cfg, None, ("data",)),
-               lambda: sharding.ServeStep(cfg, None, SHAPE),
+    for fn in (lambda: sharding.ServeStep(cfg, None, SHAPE),
                lambda: sharding.make_prefill_fn(cfg, None),
-               lambda: make_batch_specs(cfg, SHAPE, None, ("data",))):
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+               lambda: sharding.TrainStep(cfg, {"data": 1, "model": 2})):
+        with pytest.raises(NotImplementedError,
+                           match="queue 1 item 8 \\(sharding\\), step 3"):
             fn()
     assert sharding.batch_axes(None) == ()
     assert sharding.TrainStep(cfg).auto_microbatch(SHAPE) == 1
+    assert make_batch_specs(cfg, SHAPE, None, ("data",))["tokens"].spec == \
+        ("data",)
 
 
 # ---------------------------------------------------------------------------

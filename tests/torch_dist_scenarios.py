@@ -330,6 +330,118 @@ def bench_mesh(rank, p):
 
 
 # ---------------------------------------------------------------------------
+# the data-parallel train step
+# ---------------------------------------------------------------------------
+
+#: (arch, microbatch) of the data-parallel cases, on smoke configs
+DP_CASES = (("llama3_2_3b", 0), ("mixtral_8x7b", 0), ("hubert_xlarge", 0),
+            ("llama3_2_3b", 2))
+DP_STEP_KW = dict(peak_lr=1e-2, warmup=1, total_steps=10)
+
+
+def _rel(got, want) -> float:
+    return float((got - want).norm() / max(float(want.norm()), 1e-30))
+
+
+def _dp_case(mesh, arch, micro, seq=64, global_batch=8):
+    """One step of a smoke config over ``mesh``'s batch group against the
+    one-device step on the whole batch, run by this rank itself; returns
+    the largest relative errors and the parameters' largest distance from
+    rank 0's."""
+    import torch
+    import torch.distributed as tdist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import TrainStep, batch_axes
+    from repro_torch.launch.train import batch_to, train_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = get_smoke_config(arch)
+    shape = ShapeSpec("dp", "train", seq, global_batch)
+    whole = batch_to(cfg, train_batch(
+        cfg, SyntheticLM(cfg.vocab, seq, global_batch, seed=3), 0,
+        global_batch, seq), "cpu")
+    sizes = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    n = 1
+    shard = 0
+    for a in batch_axes(mesh):
+        shard = shard * sizes[a] + coord[a]
+        n *= sizes[a]
+    per = global_batch // n
+    mine = {k: v[shard * per:(shard + 1) * per] for k, v in whole.items()}
+
+    def fresh():
+        return M.init_params(cfg, torch.Generator().manual_seed(5),
+                             device="cpu")
+
+    dp = TrainStep(cfg, mesh, microbatch=micro, **DP_STEP_KW)
+    one = TrainStep(cfg, microbatch=micro, **DP_STEP_KW)
+    assert dp.auto_microbatch(shape) == (micro or 1)
+    params = fresh()
+    loss, metrics, grads = dp.grads_fn(shape)(params, mine)
+    loss1, metrics1, grads1 = one.grads_fn(shape)(params, whole)
+    assert metrics.keys() == metrics1.keys()
+    out = {
+        "loss": _rel(loss, loss1),
+        "metrics": max([_rel(metrics[k], metrics1[k]) for k in metrics],
+                       default=0.0),
+        "grads": max(_rel(g, w) for g, w in zip(tree_leaves(grads),
+                                                tree_leaves(grads1))),
+        "comm_bytes": dp.comm_bytes,
+    }
+    # control: a rank that skips the all-reduce has its own shard's grads
+    _, _, own = one.grads_fn(shape)(params, mine)
+    out["no_allreduce"] = max(_rel(g, w) for g, w in zip(
+        tree_leaves(own), tree_leaves(grads1)))
+    p_dp, o_dp, m_dp = dp.step_fn(shape)(fresh(), adamw_init(params), mine)
+    p_one, o_one, m_one = one.step_fn(shape)(fresh(), adamw_init(params),
+                                             whole)
+    out["step_loss"] = _rel(m_dp["loss"], m_one["loss"])
+    out["grad_norm"] = _rel(m_dp["grad_norm"], m_one["grad_norm"])
+    state = tree_leaves(p_dp) + tree_leaves(o_dp.m) + tree_leaves(o_dp.v)
+    want = tree_leaves(p_one) + tree_leaves(o_one.m) + tree_leaves(o_one.v)
+    out["params"] = max(_rel(g, w) for g, w in zip(tree_leaves(p_dp),
+                                                   tree_leaves(p_one)))
+    out["moments"] = max(_rel(g, w) for g, w in zip(state[len(want) // 3:],
+                                                    want[len(want) // 3:]))
+    across = torch.zeros(())
+    for t in state:
+        ref = t.clone()
+        tdist.broadcast(ref, 0)
+        across = torch.maximum(across, (t - ref).abs().max())
+    tdist.all_reduce(across, op=tdist.ReduceOp.MAX)
+    out["across_ranks"] = float(across)
+    return out
+
+
+def train_step_dp(rank, p):
+    """The cases of DP_CASES over (data p, model 1) and, when p is even,
+    (pod 2, data p/2, model 1)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    meshes = {"data": init_device_mesh("cpu", (p, 1),
+                                       mesh_dim_names=("data", "model"))}
+    if p % 2 == 0:
+        meshes["pod_data"] = init_device_mesh(
+            "cpu", (2, p // 2, 1), mesh_dim_names=("pod", "data", "model"))
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.models.config import TRAIN_4K
+    out = {f"{name}/{arch}/micro{micro}_by_rank": _dp_case(mesh, arch,
+                                                           micro)
+           for name, mesh in meshes.items() for arch, micro in DP_CASES}
+    for name, mesh in meshes.items():
+        out[f"{name}/auto_microbatch"] = {
+            arch: TrainStep(get_config(arch), mesh).auto_microbatch(TRAIN_4K)
+            for arch in ARCH_IDS}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
 
