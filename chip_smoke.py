@@ -69,7 +69,8 @@ solvers — the electronic-structure path through ``Session(engine=
 mesh    — ``repro_torch.launch.mesh_exec.MeshEngine`` on a
              ``torch.distributed`` group (after solvers, before lm and
              serve).  (a) One rank on an NCCL group: phase 3's banded
-             ``A @ B`` under ``kernel="gemm"`` and ``"pairs"``, checked by
+             ``A @ B`` at half its n (32768, cut to make room for phase
+             tp) under ``kernel="gemm"`` and ``"pairs"``, checked by
              phase 3's rule; no fetched or collective byte, every unique
              operand block pushed once, one launch a wave (``pairs`` on
              mma); build_s, multiply_s and the kernel's time on the wave.
@@ -176,11 +177,35 @@ dp      — the data-parallel ``TrainStep`` (after frontends): 2 gloo ranks
              the whole batch itself: the averaged gradient's worst leaf
              within DP_GRAD_BOUND (2e-2 relative Frobenius, PERF.md §4),
              which rank 0's own gradient (a rank that skips the
-             all-reduce) must miss.  Then one step per rank, timed: its
-             launches, the all-reduce's seconds and bytes, and the largest
-             difference of the parameters and moments across the ranks,
-             which must be 0.  The ranks share one card: correctness and
-             counts, no multi-GPU speed.
+             all-reduce) must miss.  Then one ZeRO-1 step per rank
+             (``zero1=True``, the default), timed: its launches, the
+             collectives' seconds and bytes, the largest difference of the
+             parameters across the ranks, which must be 0, and each rank's
+             moments, half of them, against the same slice of the
+             one-device step's (m within DP_GRAD_BOUND, v within twice
+             it).  The ranks share one card: correctness and counts, no
+             multi-GPU speed.
+tp      — tensor parallelism (after dp): 2 gloo ranks sharing ``cuda:0``
+             on the mesh (data 1, model 2), h2o-danube3-4b at full width,
+             each rank holding the blocks of the spec tables.  (a)
+             ``make_prefill_fn`` at full depth over 1 x 8192 tokens: 24
+             ``banded_attention`` launches a rank on ``wgmma``, each on 16
+             query and 4 kv heads, no gathered leaf; the logits within
+             TP_LOGIT_BOUND (3e-2 relative Frobenius) of the one-device
+             forward, which a run without layer 0's attention all-reduce
+             must miss.  (b) ``ServeStep`` at batch 4, 16 teacher-forced
+             tokens: tokens/s, each step's logits within TP_LOGIT_BOUND of
+             one device's and the greedy tokens that agree.  (c) A 4-layer
+             ``TrainStep`` at 1 x 8192: 8 forward and 4 backward
+             ``wgmma`` launches a rank a pass, the bf16 gradient blocks
+             against the one-device gradient's (reported: bf16 rounding
+             alone puts each 1e-2 to 2e-2 from float32), one timed step
+             whose parameter blocks are within TP_PARAM_BOUND of the
+             one-device step's; then the gradient pass in float32, within
+             TP_GRAD_BOUND (1e-5 sqrt(8192 / 64)) of one device's, which a
+             run without layer 0's attention all-reduce must miss.  Per
+             rank the collectives' bytes and seconds of each part.
+             Correctness and counts, no multi-GPU speed.
 lm      — the LM substrate at full width and depth: ``h2o-danube3-4b``
              (24 layers, d_model 3840, 32 heads, 8 kv heads, hd 120,
              window 4096, bf16), weights from ``init_params`` with a
@@ -1655,6 +1680,9 @@ def serve_phase(torch, ops, launches) -> dict:
 
 #: rank counts of part (b), the program of benchmarks/bench_mesh_comm.py
 MESH_PS = (2, 4, 8)
+#: (a)'s banded size: half of phase 3's n, whose host construction alone
+#: took 96.7 s of the phase twice over (cut to keep the smoke under 900 s)
+MESH_ONE_N = SIZES["banded"][0] // 2
 #: rank counts of part (c) and its banded n per rank (weak scaling)
 WEAK_PS, WEAK_N = (1, 2, 4), 8192
 #: seconds a group of ranks may take before the smoke fails
@@ -1677,16 +1705,17 @@ def prebuilt_only() -> None:
 
 def mesh_world_of_one(torch, ops, ref) -> dict:
     """(a) ``Session(engine=MeshEngine(...))`` on an NCCL group of one
-    rank, at phase 3's banded size, under each kernel: the result by phase
-    3's rule, no fetched or collective byte, each unique operand block
-    pushed once, the kernel launched on the card."""
+    rank, at half of phase 3's banded size (MESH_ONE_N), under each
+    kernel: the result by phase 3's rule, no fetched or collective byte,
+    each unique operand block pushed once, the kernel launched on the
+    card."""
     import tempfile
     import scipy.sparse as sp
     import torch.distributed as dist
     from repro_torch import Session
     from repro_torch.launch.mesh_exec import MeshEngine
 
-    build, oracle = banded_operands(*SIZES["banded"])
+    build, oracle = banded_operands(MESH_ONE_N, SIZES["banded"][1])
     out = {}
     torch.cuda.set_device(0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3253,18 +3282,19 @@ def _rel_errs(got, want) -> tuple:
 def dp_rank(rank: int, p: int) -> dict:
     """One rank of phase dp: the averaged gradient of its row, held by
     rank 0 against the one-device gradient of the whole batch (and its own
-    row's, the control); then one ``TrainStep`` step, timed, and its
-    parameters and moments against rank 0's."""
+    row's, the control); then one ``TrainStep`` step (ZeRO-1), timed, its
+    parameters against rank 0's and its moment slices against the
+    one-device step's."""
     import torch
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch.sharding import TrainStep
+    from repro_torch.launch.sharding import TrainStep, tree_blocks
     from repro_torch.launch.train import batch_to
     from repro_torch.models import model as M
     from repro_torch.models.config import ShapeSpec
-    from repro_torch.optim import adamw_init
+    from repro_torch.optim import clip_by_global_norm
     from repro_torch.optim.adamw import _slabs, tree_leaves
 
     prebuilt_only()
@@ -3294,10 +3324,10 @@ def dp_rank(rank: int, p: int) -> dict:
     torch.cuda.synchronize()
     out["grads_launches"] = launched("gradient")
     out["loss"] = float(loss)
+    one = TrainStep(cfg)
+    loss1, _, g1 = one.grads_fn(shape)(
+        params, batch_to(cfg, data.batch_at(0), "cuda"))
     if rank == 0:
-        one = TrainStep(cfg)
-        loss1, _, g1 = one.grads_fn(shape)(
-            params, batch_to(cfg, data.batch_at(0), "cuda"))
         out["loss_one_device"] = float(loss1)
         out["grad_rel_err"], out["grad_rel_err_all"] = _rel_errs(
             tree_leaves(grads), tree_leaves(g1))
@@ -3305,12 +3335,20 @@ def dp_rank(rank: int, p: int) -> dict:
             params, mine)
         out["no_allreduce_rel_err"], out["no_allreduce_rel_err_all"] = \
             _rel_errs(tree_leaves(own), tree_leaves(g1))
-        del g1, own
-    del grads
+        del own
+    # the one-device step's moments, this rank's ZeRO-1 slices: AdamW's
+    # first moments are (1 - b) of the clipped gradient and its square
+    _, gn1 = clip_by_global_norm(g1, dp.clip_norm)
+    zspecs = dp.opt_shardings().m
+    m1 = [t.float() * 0.1 for t in tree_leaves(tree_blocks(g1, zspecs,
+                                                           mesh))]
+    v1 = [t.float().square() * 0.05 for t in tree_leaves(
+        tree_blocks(g1, zspecs, mesh))]
+    del grads, g1
     torch.cuda.empty_cache()
     dist.barrier()
 
-    opt = adamw_init(params)
+    opt = dp.adamw_init(params)
     dp.comm_bytes, dp.comm_seconds = 0, 0.0
     reset_counts()
     dist.barrier()
@@ -3322,8 +3360,13 @@ def dp_rank(rank: int, p: int) -> dict:
                grad_norm=float(m["grad_norm"]),
                step_launches=launched("step"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    out["moment_m_rel_err"], _ = _rel_errs(tree_leaves(opt.m), m1)
+    out["moment_v_rel_err"], _ = _rel_errs(tree_leaves(opt.v), v1)
+    out["moment_share"] = sum(t.numel() for t in tree_leaves(opt.m)) / \
+        sum(t.numel() for t in tree_leaves(params))
+    del m1, v1
     diff = torch.zeros(())
-    for t in tree_leaves(params) + tree_leaves(opt.m) + tree_leaves(opt.v):
+    for t in tree_leaves(params):
         for (ts,) in _slabs(t):
             mine_h = ts.cpu()
             ref = mine_h.clone()
@@ -3340,8 +3383,10 @@ def dp_phase(torch) -> dict:
     DP_RANKS, model 1), h2o-danube3-4b at full width and DP_LAYERS layers,
     one row of DP_SEQ tokens a rank: the averaged gradient within
     DP_GRAD_BOUND of the one-device gradient of the whole batch, which the
-    rank's own gradient (no all-reduce) must miss; then one step whose
-    parameters and moments are equal on every rank."""
+    rank's own gradient (no all-reduce) must miss; then one ZeRO-1 step
+    whose parameters are equal on every rank and whose moments are each
+    rank's half, within DP_GRAD_BOUND (m) and twice it (v, a square) of
+    the same slice of the one-device step's."""
     from repro_torch.launch.mesh import launch_ranks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3363,8 +3408,12 @@ def dp_phase(torch) -> dict:
         f"{[round(r['comm_s'], 4) for r in res]}, bytes "
         f"{[r['comm_bytes'] for r in res]} a rank; loss "
         f"{r0['step_loss']:.6f}, grad_norm {r0['grad_norm']:.6f}; params "
-        f"and moments max diff across ranks "
-        f"{max(r['across_ranks_max_diff'] for r in res)}; launches "
+        f"max diff across ranks "
+        f"{max(r['across_ranks_max_diff'] for r in res)}; ZeRO-1 moments "
+        f"{[r['moment_share'] for r in res]} of the parameters a rank, "
+        f"rel err against the one-device slices m "
+        f"{max(r['moment_m_rel_err'] for r in res):.3g}, v "
+        f"{max(r['moment_v_rel_err'] for r in res):.3g}; launches "
         f"{out['launches']}; max_memory_allocated "
         f"{[round(r['peak_mem_gb'], 2) for r in res]} GB; wall_s="
         f"{out['wall_s']:.3f} (ranks share one card: counts, no multi-GPU "
@@ -3376,10 +3425,330 @@ def dp_phase(torch) -> dict:
         raise AssertionError(f"dp: the control without the all-reduce "
                              f"({r0['no_allreduce_rel_err']}) meets the bound")
     if any(r["across_ranks_max_diff"] != 0.0 for r in res):
-        raise AssertionError("dp: the ranks' parameters or moments differ")
+        raise AssertionError("dp: the ranks' parameters differ")
+    if not all(r["moment_m_rel_err"] <= DP_GRAD_BOUND and
+               r["moment_v_rel_err"] <= 2 * DP_GRAD_BOUND and
+               r["moment_share"] == 1 / DP_RANKS for r in res):
+        raise AssertionError(f"dp: ZeRO-1 moments {res}")
     if not all(np.isfinite(r["step_loss"]) and np.isfinite(r["grad_norm"])
                and r["comm_bytes"] > 0 for r in res):
         raise AssertionError(f"dp: step records {res}")
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase tp: tensor parallelism on the model axis
+# ---------------------------------------------------------------------------
+
+#: ranks on the model axis (mesh (data 1, model TP_RANKS)); prefill tokens
+#: at full depth; decode (batch, teacher-forced tokens); train step
+#: (layers, tokens)
+TP_RANKS, TP_PREFILL, TP_DECODE, TP_TRAIN = 2, 8192, (4, 16), (4, 8192)
+#: bound on the relative Frobenius error of the prefill's and each decode
+#: step's logits against one device's (PERF.md §4): 48 row-parallel
+#: outputs each rounded once more to bf16 (2**-9) before their sum, a
+#: random walk of sqrt(48) 2**-9 = 1.4e-2, with 2x room
+TP_LOGIT_BOUND = 3e-2
+#: bound on the worst gradient leaf of the sharded float32 step against
+#: the one-device float32 gradient's blocks: the CPU tests' 1e-5 scaled by
+#: sqrt(S / 64) (PERF.md §4).  In bf16 the one-device gradient is itself
+#: 1e-2 to 2e-2 from the float32 one, so the bf16 comparison is reported,
+#: not bounded
+TP_GRAD_BOUND = 1e-5 * (TP_TRAIN[1] / 64) ** 0.5
+#: bound on the parameter blocks after one step (learning rate 3e-4, no
+#: warmup) against the one-device step's, whole tree: AdamW's first update
+#: is about lr sign(g), and a gradient element whose bf16 error flips its
+#: sign moves by 2 lr (6e-4) against weights of about d**-0.5 (0.016);
+#: with a few tenths of a percent flipped, about 4e-3, 5x room
+TP_PARAM_BOUND = 2e-2
+
+
+def _rel(torch, got, want) -> float:
+    """Relative Frobenius error, float32 sums a row at a time."""
+    num = den = 0.0
+    for g, w in zip(got.reshape(-1, got.shape[-1]),
+                    want.reshape(-1, want.shape[-1])):
+        num += float((g.float() - w.float()).square().sum())
+        den += float(w.float().square().sum())
+    return (num / max(den, 1e-60)) ** 0.5
+
+
+def tp_rank(rank: int, p: int, small: bool = False) -> dict:
+    """One rank of phase tp on the mesh (data 1, model p), h2o-danube3-4b
+    at full width (``small``: its smoke config on the CPU, a rehearsal).
+    (a) ``make_prefill_fn`` at full depth over 1 x TP_PREFILL tokens, its
+    launches, the heads each attention call gets, the gathered leaves, its
+    collectives; rank 0 holds the logits against the one-device forward,
+    and those of a run that skips layer 0's attention all-reduce.  (b)
+    ``ServeStep`` teacher-forced at TP_DECODE, timed; rank 0 against the
+    one-device decode step by step.  (c) A TP_TRAIN[0]-layer ``TrainStep``
+    (ZeRO-1; data 1, so the moments are the parameter blocks): its
+    gradient pass against the one-device gradient's blocks, one timed
+    step against the one-device step's parameter blocks; (d) the gradient
+    pass in float32 against one device's, and the control without layer
+    0's attention all-reduce."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.launch.sharding import (ServeStep, TrainStep,
+                                             make_prefill_fn,
+                                             param_shardings, tree_blocks)
+    from repro_torch.launch.train import batch_to
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    dev = "cpu" if small else "cuda"
+    if not small:
+        prebuilt_only()
+        torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = init_device_mesh("cpu", (1, p), mesh_dim_names=("data", "model"))
+    base = get_smoke_config(LM_ARCH) if small else get_config(LM_ARCH)
+    n_pre = 64 if small else TP_PREFILL
+    n_layers, s_train = (2, 64) if small else TP_TRAIN
+
+    def sync():
+        if not small:
+            torch.cuda.synchronize()
+
+    def params_of(cfg):
+        full = M.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             device=dev)
+        mine = tree_map(lambda t: t.clone(), tree_blocks(
+            full, param_shardings(cfg, mesh), mesh))
+        return full, mine
+
+    def launched(what, want):
+        counts, designs = phase_launches().values()
+        if not small and any(counts[k] != n or designs[k]["wgmma"] != n
+                             for k, n in want.items()):
+            raise AssertionError(f"tp rank {rank} {what}: launched {counts} "
+                                 f"({designs}), not {want} on wgmma")
+        return counts
+
+    def stats_of(st):
+        return {"comm_bytes": st.bytes, "comm_s": st.seconds,
+                "gathered": dict(st.gathered)}
+
+    out = {"rank": rank}
+    # (a) prefill at full depth
+    cfg = base
+    full, params = params_of(cfg)
+    if rank:
+        del full
+    batch = batch_to(cfg, {"tokens": SyntheticLM(cfg.vocab, n_pre, 1, seed=0)
+                           .batch_at(0)["tokens"]}, dev)
+    prefill = make_prefill_fn(cfg, mesh)
+    heads, orig = [], ops.banded_attention
+
+    def record(q, k, v, **kw):
+        heads.append((q.shape[0], k.shape[0]))
+        return orig(q, k, v, **kw)
+    ops.banded_attention = record
+    try:
+        reset_counts()
+        dist.barrier()
+        t0 = time.perf_counter()
+        logits = prefill(params, batch)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = launched(
+            "prefill", {"block_attention": cfg.n_layers})
+    finally:
+        ops.banded_attention = orig
+    out["prefill_heads"] = sorted(set(heads))
+    out["prefill"] = stats_of(prefill.tp.stats)
+    prefill.tp.drop_sum(1)
+    control = prefill(params, batch)
+    if rank == 0:
+        with torch.no_grad():
+            want = M.forward(cfg, full, batch, remat=False)[0]
+        out["prefill_rel_err"] = _rel(torch, logits, want)
+        out["prefill_control_rel_err"] = _rel(torch, control, want)
+        del want
+    del logits, control
+    # (b) decode, teacher-forced
+    b, n_dec = (2, 8) if small else TP_DECODE
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (b, n_dec))).to(dev)
+    ss = ServeStep(cfg, mesh, ShapeSpec("tp", "decode", n_dec, b))
+    cache, step = ss.init_cache(dev), ss.step_fn()
+    got = []
+    dist.barrier()
+    sync()
+    t0 = time.perf_counter()
+    for pos in range(n_dec):
+        lg, cache = step(params, toks[:, pos], cache, pos)
+        got.append(lg)
+    sync()
+    out["decode_s"] = time.perf_counter() - t0
+    out["decode_tokens_per_s"] = b * n_dec / out["decode_s"]
+    out["decode"] = stats_of(ss.tp.stats)
+    if rank == 0:
+        cache1 = M.init_cache(cfg, b, n_dec, device=dev)
+        errs, agree = [], 0
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for pos in range(n_dec):
+                want, cache1 = M.decode_step(cfg, full, toks[:, pos], cache1,
+                                             pos)
+                errs.append(_rel(torch, got[pos], want))
+                agree += int((got[pos].argmax(-1) == want.argmax(-1)).sum())
+        sync()
+        out.update(decode_rel_err=max(errs), greedy_agree=agree,
+                   greedy_of=b * n_dec,
+                   decode_one_device_s=time.perf_counter() - t0)
+        del full, cache1
+    del params, cache, got
+    if not small:
+        torch.cuda.empty_cache()
+    # (c) the train step
+    cfg = base.scaled(n_layers=n_layers)
+    full, params = params_of(cfg)
+    batch = batch_to(cfg, SyntheticLM(cfg.vocab, s_train, 1, seed=0)
+                     .batch_at(0), dev)
+    shape = ShapeSpec("tp", "train", s_train, 1)
+    kw = dict(peak_lr=3e-4, warmup=0, total_steps=3)
+    ts = TrainStep(cfg, mesh, **kw)
+    want_launch = {"block_attention": 2 * n_layers,
+                   "block_attention_bwd": n_layers}
+    reset_counts()
+    dist.barrier()
+    loss, _, grads = ts.grads_fn(shape)(params, batch)
+    sync()
+    out["grads_launches"] = launched("gradient", want_launch)
+    out["loss"] = float(loss)
+    one = TrainStep(cfg, **kw)
+    loss1, _, g1 = one.grads_fn(shape)(full, batch)
+    specs = ts.param_shardings()
+    out["loss_one_device"] = float(loss1)
+    out["bf16_grad_rel_err"], out["bf16_grad_rel_err_all"] = _rel_errs(
+        tree_leaves(grads), tree_leaves(tree_blocks(g1, specs, mesh)))
+    del grads, g1
+    if not small:
+        torch.cuda.empty_cache()
+    opt = ts.adamw_init(params)
+    ts.comm_bytes, ts.comm_seconds = 0, 0.0
+    reset_counts()
+    dist.barrier()
+    t0 = time.perf_counter()
+    params, opt, m = ts.step_fn(shape)(params, opt, batch)
+    sync()
+    out.update(step_s=time.perf_counter() - t0, step_loss=float(m["loss"]),
+               grad_norm=float(m["grad_norm"]),
+               step_launches=launched("step", want_launch),
+               step_comm_bytes=ts.comm_bytes, step_comm_s=ts.comm_seconds)
+    p1, _, m1 = one.step_fn(shape)(full, adamw_init(full), batch)
+    flat = [torch.cat([t.float().reshape(-1) for t in tree_leaves(x)])
+            for x in (params, tree_blocks(p1, specs, mesh))]
+    out["param_rel_err"] = _rel(torch, flat[0][None], flat[1][None])
+    out["grad_norm_one_device"] = float(m1["grad_norm"])
+    del full, params, opt, p1, flat
+    if not small:
+        torch.cuda.empty_cache()
+    # (d) the gradient pass in float32 against one device's, and without
+    # layer 0's attention all-reduce (the control)
+    cfg = cfg.scaled(dtype="float32")
+    full, params = params_of(cfg)
+    _, _, g1 = TrainStep(cfg, **kw).grads_fn(shape)(full, batch)
+    g1 = tree_blocks(g1, specs, mesh)
+    _, _, grads = TrainStep(cfg, mesh, **kw).grads_fn(shape)(params, batch)
+    out["grad_rel_err"], out["grad_rel_err_all"] = _rel_errs(
+        tree_leaves(grads), tree_leaves(g1))
+    del grads
+    ctl = TrainStep(cfg, mesh, **kw)
+    ctl._build()
+    ctl.tp.drop_sum(1)
+    _, _, cg = ctl.grads_fn(shape)(params, batch)
+    out["control_rel_err"], out["control_rel_err_all"] = _rel_errs(
+        tree_leaves(cg), tree_leaves(g1))
+    if not small:
+        out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def tp_phase(torch) -> dict:
+    """Phase tp: TP_RANKS gloo ranks sharing ``cuda:0`` on the mesh (data
+    1, model TP_RANKS), h2o-danube3-4b at full width (``tp_rank``): the
+    prefill and each decode step within TP_LOGIT_BOUND of one device,
+    which the prefill without one all-reduce must miss; 24 wgmma forward
+    launches a rank on 16 query and 4 kv heads and no gathered leaf; the
+    train step's launches and its parameters within TP_PARAM_BOUND of the
+    one-device step's blocks; its float32 gradients within TP_GRAD_BOUND
+    (the control must miss)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import launch_ranks
+    torch.cuda.empty_cache()
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    res = launch_ranks(tp_rank, TP_RANKS, timeout=RANK_TIMEOUT)
+    r0 = res[0]
+    keys = ("prefill_launches", "grads_launches", "step_launches")
+    out = {"ranks": res, "wall_s": time.perf_counter() - t0,
+           "bounds": {"logits": TP_LOGIT_BOUND, "grads": TP_GRAD_BOUND,
+                      "params": TP_PARAM_BOUND},
+           "launches": {k: sum(r[key][k] for r in res for key in keys)
+                        for k in r0["step_launches"]}}
+    heads = (cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS)
+    log(f"  {TP_RANKS} gloo ranks on cuda:0, (data 1, model {TP_RANKS}), "
+        f"{LM_ARCH} at full width")
+    log(f"    prefill 1 x {TP_PREFILL}, {cfg.n_layers} layers: s "
+        f"{[round(r['prefill_s'], 4) for r in res]}; logits rel err "
+        f"{r0['prefill_rel_err']:.4g} (bound {TP_LOGIT_BOUND}), without "
+        f"layer 0's attention all-reduce {r0['prefill_control_rel_err']:.4g}"
+        f"; attention calls (q heads, kv heads) "
+        f"{[r['prefill_heads'] for r in res]}; gathered leaves "
+        f"{[r['prefill']['gathered'] for r in res]}; collectives bytes "
+        f"{[r['prefill']['comm_bytes'] for r in res]}, s "
+        f"{[round(r['prefill']['comm_s'], 4) for r in res]}")
+    log(f"    decode batch {TP_DECODE[0]} x {TP_DECODE[1]} teacher-forced: "
+        f"{[round(r['decode_tokens_per_s'], 2) for r in res]} tokens/s (one "
+        f"device {TP_DECODE[0] * TP_DECODE[1] / r0['decode_one_device_s']:.2f}"
+        f"); worst step rel err {r0['decode_rel_err']:.4g}; greedy tokens "
+        f"agree {r0['greedy_agree']} of {r0['greedy_of']}; collectives bytes "
+        f"{[r['decode']['comm_bytes'] for r in res]}, s "
+        f"{[round(r['decode']['comm_s'], 4) for r in res]}")
+    log(f"    train {TP_TRAIN[0]} layers, 1 x {TP_TRAIN[1]}: loss "
+        f"{r0['loss']:.6f} (one device {r0['loss_one_device']:.6f}); bf16 "
+        f"gradient rel err worst leaf "
+        f"{max(r['bf16_grad_rel_err'] for r in res):.4g} (all "
+        f"{max(r['bf16_grad_rel_err_all'] for r in res):.4g}); float32 "
+        f"gradient rel err worst leaf "
+        f"{max(r['grad_rel_err'] for r in res):.4g} (all "
+        f"{max(r['grad_rel_err_all'] for r in res):.4g}), bound "
+        f"{TP_GRAD_BOUND:.4g}; without layer 0's attention all-reduce "
+        f"{min(r['control_rel_err'] for r in res):.4g}; step s "
+        f"{[round(r['step_s'], 4) for r in res]}, collectives bytes "
+        f"{[r['step_comm_bytes'] for r in res]}, s "
+        f"{[round(r['step_comm_s'], 4) for r in res]}; parameters rel err "
+        f"{max(r['param_rel_err'] for r in res):.4g} (bound "
+        f"{TP_PARAM_BOUND}); launches {out['launches']}; "
+        f"max_memory_allocated {[round(r['peak_mem_gb'], 2) for r in res]}"
+        f" GB; wall_s={out['wall_s']:.3f} (ranks share one card: counts, "
+        f"no multi-GPU speed)")
+    checks = {
+        "prefill logits": r0["prefill_rel_err"] <= TP_LOGIT_BOUND,
+        "prefill control misses": r0["prefill_control_rel_err"] >
+        TP_LOGIT_BOUND,
+        "decode logits": r0["decode_rel_err"] <= TP_LOGIT_BOUND,
+        "heads": all(r["prefill_heads"] == [heads] for r in res),
+        "no gathered leaf": all(not r["prefill"]["gathered"] for r in res),
+        "gradients": all(r["grad_rel_err"] <= TP_GRAD_BOUND for r in res),
+        "gradient control misses": all(r["control_rel_err"] > TP_GRAD_BOUND
+                                       for r in res),
+        "parameters": all(r["param_rel_err"] <= TP_PARAM_BOUND for r in res),
+        "finite": all(np.isfinite(r["step_loss"]) and
+                      np.isfinite(r["grad_norm"]) for r in res),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"tp: failed {failed}")
     log(f"    card: {gpu_name_and_limit()}")
     return out
 
@@ -3633,6 +4002,13 @@ def main() -> int:
     total = {k: total[k] + dp["launches"].get(k, 0) for k in _build.KERNELS}
     log(f"  dp_s={dp['dp_s']:.3f} launches={total}")
 
+    log("phase tp: tensor parallelism on gloo ranks")
+    t0 = time.perf_counter()
+    tp = tp_phase(torch)
+    tp["tp_s"] = time.perf_counter() - t0
+    total = {k: total[k] + tp["launches"].get(k, 0) for k in _build.KERNELS}
+    log(f"  tp_s={tp['tp_s']:.3f} launches={total}")
+
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -3672,7 +4048,7 @@ def main() -> int:
                                  "solvers": solvers, "mesh": mesh,
                                  "families": families,
                                  "frontends": frontends, "dp": dp,
-                                 "serve": serve,
+                                 "tp": tp, "serve": serve,
                                  "trace": trace,
                                  "smoke_s": elapsed}))
     log(card)

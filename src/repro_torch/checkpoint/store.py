@@ -21,7 +21,9 @@ which neither side reads back.
   ``save`` returns), writes it on a worker thread, keeps the last ``keep``
   checkpoints, and ``restore_latest`` ignores uncommitted (partially
   written) directories — a crash during a save is safe;
-* restore takes a ``device`` where the reference takes a sharding tree.
+* restore takes a ``device``, and like the reference a tree of
+  shardings (here partition specs on a mesh): each rank then restores
+  its own blocks.
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ class _Leaf:
         return "*"
 
 
-def _flatten(tree) -> tuple[list, Any]:
-    """(leaves in the reference's order, the structure with placeholders)."""
+def _flatten(tree, spec_leaves: bool = False) -> tuple[list, Any]:
+    """(leaves in the reference's order, the structure with placeholders).
+    With ``spec_leaves`` a plain tuple is one leaf (a partition spec)."""
     leaves: list = []
 
     def walk(x):
@@ -54,7 +57,7 @@ def _flatten(tree) -> tuple[list, Any]:
             return {k: walk(x[k]) for k in sorted(x)}
         if isinstance(x, tuple) and hasattr(x, "_fields"):
             return type(x)(*(walk(y) for y in x))
-        if isinstance(x, (tuple, list)):
+        if isinstance(x, (tuple, list)) and not spec_leaves:
             return type(x)(walk(y) for y in x)
         if x is None:
             return None
@@ -125,12 +128,18 @@ def save_checkpoint(directory, step: int, tree, *, blocking: bool = True
     return dest
 
 
-def load_checkpoint(directory, step: int, like, *, device=None):
+def load_checkpoint(directory, step: int, like, *, device=None,
+                    shardings=None, mesh=None, coords=None):
     """Restore into the structure of ``like``.
 
     A tensor leaf of ``like`` comes back as a tensor of its dtype, on
     ``device`` (default: that leaf's own device); any other leaf comes back
-    as a numpy array of its type.  Returns (tree, step)."""
+    as a numpy array of its type.  ``shardings`` (a matching tree of
+    partition specs, ``launch.sharding``'s tables) restores this rank's
+    block of each leaf on ``mesh`` (a DeviceMesh, or ``{axis: size}`` with
+    the rank's ``coords``): the cross-mesh restore, whatever layout the
+    checkpoint was saved from.  ``like``'s leaves then have either the
+    saved shape or the block's.  Returns (tree, step)."""
     directory = pathlib.Path(directory)
     src = directory / f"step_{step:08d}"
     if not (directory / f"step_{step:08d}.COMMITTED").exists():
@@ -141,14 +150,23 @@ def load_checkpoint(directory, step: int, like, *, device=None):
         raise ValueError(f"checkpoint step {step} holds "
                          f"{len(manifest['leaves'])} leaves, the tree "
                          f"{len(leaves)}")
+    specs = [None] * len(leaves)
+    if shardings is not None:
+        specs = _flatten(shardings, spec_leaves=True)[0]
     out = []
-    for i, ref in enumerate(leaves):
+    for i, (ref, spec) in enumerate(zip(leaves, specs)):
         arr = np.load(src / f"leaf_{i:05d}.npy")
+        shapes = {tuple(arr.shape)}
+        if spec is not None:
+            from repro_torch.launch.sharding import block_slices
+            cut = block_slices(arr.shape, spec, mesh, coords)
+            arr = arr[tuple(slice(a, a + n) for a, n in cut)]
+            shapes.add(tuple(arr.shape))
         ref_shape = tuple(getattr(ref, "shape", np.shape(ref)))
-        if tuple(arr.shape) != ref_shape:
+        if ref_shape not in shapes:
             raise ValueError(f"leaf {i}: {arr.shape} != {ref_shape}")
         if isinstance(ref, torch.Tensor):
-            out.append(torch.from_numpy(arr).to(
+            out.append(torch.from_numpy(np.ascontiguousarray(arr)).to(
                 device=ref.device if device is None else device,
                 dtype=ref.dtype))
         else:

@@ -44,6 +44,7 @@ The SUMMA baseline to compare against lives in core/spsumma.py.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -647,3 +648,228 @@ def demand_spmm(mesh, axis: str, plan: DemandPlan,
     owned = _owned_mask(g, n_dev, dev, device=A.device)
     return _local_spmm(A, Ar, Ac, B, Br, Bc, g, owned, cap_c,
                        plan.pair_caps, use_pair_kernel)
+
+
+# ---------------------------------------------------------------------------
+# Collectives of the sharded LM (launch/sharding.py, models/): an
+# all-reduce, an all-gather and a reduce-scatter along a dim, and a
+# broadcast over a subgroup, each counted; and the autograd pairs the
+# tensor-parallel layers are built from
+# ---------------------------------------------------------------------------
+
+#: elements one gloo round ships at most (optim.adamw.SLAB's size)
+SLAB = 1 << 26
+
+
+@dataclasses.dataclass
+class CommStats:
+    """What a rank's collectives moved: ``bytes`` of every call's payload
+    (an all-reduce's tensor once, an all-gather's result with the rank's own
+    part), ``seconds`` on the host clock, and ``gathered``, the bytes each
+    named leaf's all-gathers returned."""
+    bytes: int = 0
+    seconds: float = 0.0
+    gathered: dict = dataclasses.field(default_factory=dict)
+
+    def add(self, t: torch.Tensor, t0: float) -> None:
+        self.bytes += t.numel() * t.element_size()
+        self.seconds += time.perf_counter() - t0
+
+
+def _wire_copy(group, x: torch.Tensor) -> torch.Tensor:
+    """A fresh contiguous copy of ``x`` where ``group`` ships tensors."""
+    wire = wire_device(group, x.device)
+    return torch.empty(x.shape, dtype=x.dtype, device=wire).copy_(x.detach())
+
+
+def all_reduce(group, x: torch.Tensor, stats: Optional[CommStats] = None,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """The sum (or ``op``) of every rank's ``x`` over ``group``: a new
+    tensor of x's type on x's device.  gloo reduces on the host, at most
+    :data:`SLAB` elements a round."""
+    t0 = time.perf_counter()
+    buf = _wire_copy(group, x)
+    for part in buf.view(-1).split(SLAB):
+        dist.all_reduce(part, op=op, group=group)
+    if stats is not None:
+        stats.add(buf, t0)
+    return buf.to(x.device)
+
+
+def all_gather_along(group, x: torch.Tensor, dim: int,
+                     stats: Optional[CommStats] = None) -> torch.Tensor:
+    """Every rank's ``x`` (one shape on all ranks) concatenated along
+    ``dim`` in rank order, on x's device."""
+    t0 = time.perf_counter()
+    xw = _wire_copy(group, x)
+    outs = [torch.empty_like(xw) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(outs, xw, group=group)
+    out = torch.cat(outs, dim)
+    if stats is not None:
+        stats.add(out, t0)
+    return out.to(x.device)
+
+
+def reduce_scatter_along(group, x: torch.Tensor, dim: int,
+                         stats: Optional[CommStats] = None) -> torch.Tensor:
+    """This rank's part (the r-th of p equal parts along ``dim``) of the sum
+    of every rank's ``x``.  gloo has no reduce-scatter on every build, so
+    this is an all-reduce that keeps the rank's part, and is counted as
+    the all-reduce it is."""
+    rank, p = rank_and_size(group)
+    n = x.shape[dim] // p
+    return all_reduce(group, x, stats).narrow(dim, rank * n, n)
+
+
+def broadcast(group, x: torch.Tensor, src: int = 0,
+              stats: Optional[CommStats] = None) -> torch.Tensor:
+    """Rank ``src``'s (of ``group``) ``x`` on every rank, a new tensor."""
+    t0 = time.perf_counter()
+    buf = _wire_copy(group, x)
+    for part in buf.view(-1).split(SLAB):
+        dist.broadcast(part, src=_global(group, src), group=group)
+    if stats is not None:
+        stats.add(buf, t0)
+    return buf.to(x.device)
+
+
+class _Sum(torch.autograd.Function):
+    """Partial sums -> their total on every rank; the gradient of a
+    replicated total is each partial's (identity backward)."""
+
+    @staticmethod
+    def forward(ctx, x, group, stats):
+        return all_reduce(group, x, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    """A replicated tensor entering rank-partitioned work: identity
+    forward; each rank's gradient is a part, so backward sums them."""
+
+    @staticmethod
+    def forward(ctx, x, group, stats):
+        ctx.group, ctx.stats = group, stats
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(ctx.group, g, ctx.stats), None, None
+
+
+class _Gather(torch.autograd.Function):
+    """Equal parts along ``dim`` -> the whole on every rank; backward is
+    the conjugate reduce-scatter (the whole's gradient summed over the
+    ranks, each keeping its part)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, stats):
+        ctx.dim, ctx.group, ctx.stats = dim, group, stats
+        return all_gather_along(group, x, dim, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (reduce_scatter_along(ctx.group, g, ctx.dim, ctx.stats),
+                None, None, None)
+
+
+class _Scatter(torch.autograd.Function):
+    """Partial sums -> each rank's part of their total along ``dim``;
+    backward is the conjugate all-gather."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, stats):
+        ctx.dim, ctx.group, ctx.stats = dim, group, stats
+        return reduce_scatter_along(group, x, dim, stats)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (all_gather_along(ctx.group, g.contiguous(), ctx.dim,
+                                 ctx.stats), None, None, None)
+
+
+class ModelGroup:
+    """The ranks one tensor-parallel layer spans (a mesh's ``model`` axis),
+    as this rank sees them, with the collectives of the layers:
+
+    * :meth:`sum` — partial sums of rank-partitioned work into the
+      replicated stream (all-reduce; identity backward);
+    * :meth:`enter` — a replicated tensor into rank-partitioned work
+      (identity; all-reduce backward); ``sum_inside`` is both, for a total
+      that partitioned work reads again (the mamba2 norm, the x_proj of
+      mamba1);
+    * :meth:`gather` / :meth:`scatter` — all-gather and reduce-scatter
+      along a dim, each the other's backward;
+    * :meth:`max` — an all-reduce of maxima (no gradient).
+
+    ``stats`` counts every call.  :meth:`drop_sum` makes one later call
+    of :meth:`sum` return the rank's partial untouched: the must-fail
+    control of the tests.  A group of one rank makes no call."""
+
+    def __init__(self, group, stats: Optional[CommStats] = None):
+        self.group = group
+        self.rank, self.size = rank_and_size(group)
+        self.stats = stats if stats is not None else CommStats()
+        self.skip_sum: Optional[int] = None
+        self.n_sums = 0
+
+    def drop_sum(self, i: int) -> None:
+        """Skip the all-reduce of the i-th call of :meth:`sum` from now on
+        (from 0; every rank must drop the same call)."""
+        self.n_sums, self.skip_sum = 0, i
+
+    def split(self, n: int) -> tuple[int, int]:
+        """This rank's contiguous range of ``n`` items (sizes differ by at
+        most one)."""
+        return self.rank * n // self.size, (self.rank + 1) * n // self.size
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        i, self.n_sums = self.n_sums, self.n_sums + 1
+        if i == self.skip_sum or self.size == 1:
+            return x
+        return _Sum.apply(x, self.group, self.stats)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        if self.size == 1 or not torch.is_grad_enabled():
+            return x
+        return _Enter.apply(x, self.group, self.stats)
+
+    def sum_inside(self, x: torch.Tensor) -> torch.Tensor:
+        return self.enter(self.sum(x))
+
+    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        return _Gather.apply(x, dim, self.group, self.stats)
+
+    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        return _Scatter.apply(x, dim, self.group, self.stats)
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return x.detach()
+        return all_reduce(self.group, x.detach(), self.stats,
+                          op=dist.ReduceOp.MAX)
+
+    def gather_uneven(self, x: torch.Tensor, dim: int, n: int
+                      ) -> torch.Tensor:
+        """This rank's :meth:`split` part of ``n`` items along ``dim`` ->
+        all ``n`` on every rank (no gradient): parts padded to the largest,
+        gathered, trimmed."""
+        if self.size == 1:
+            return x.detach()
+        big = -(-n // self.size)
+        pad = big - x.shape[dim]
+        if pad:
+            shape = list(x.shape)
+            shape[dim] = pad
+            x = torch.cat([x, x.new_zeros(shape)], dim)
+        whole = all_gather_along(self.group, x.detach(), dim, self.stats)
+        parts = [whole.narrow(dim, r * big, (r + 1) * n // self.size -
+                              r * n // self.size) for r in range(self.size)]
+        return torch.cat(parts, dim)

@@ -21,6 +21,7 @@ group, no process and no CUDA context.
 from __future__ import annotations
 
 import datetime
+import math
 import multiprocessing as mp
 import os
 import queue
@@ -34,15 +35,25 @@ import torch.distributed as dist
 
 from repro_torch.core.distributed import rank_and_size
 
-#: the reference's 16x16 TPU pod layout belongs to the sharded LM
-#: (ROADMAP.md queue 1 item 8)
-_ITEM_8 = ("make_production_mesh (a 16x16 TPU pod for the sharded LM) is "
-           "not ported yet: ROADMAP.md queue 1 item 8")
+def production_layout(multi_pod: bool = False) -> tuple:
+    """(shape, axis names) of the reference's production meshes."""
+    if multi_pod:
+        return (2, 16, 16), ("pod", "data", "model")
+    return (16, 16), ("data", "model")
 
 
 def make_production_mesh(*, multi_pod: bool = False):
-    """Not ported: the sharded LM's pod mesh is queue 1 item 8."""
-    raise NotImplementedError(_ITEM_8)
+    """16x16 single-pod (256 ranks) or 2x16x16 multi-pod (512 ranks) mesh
+    over the initialised world, which must hold exactly that many ranks
+    (one per device)."""
+    shape, names = production_layout(multi_pod)
+    need, world = math.prod(shape), rank_and_size()[1]
+    if world != need:
+        layout = "x".join(map(str, shape))
+        raise ValueError(f"make_production_mesh: the {layout} mesh needs a "
+                         f"world of {need} ranks, this one has {world} "
+                         f"(start one rank per device, launch_ranks)")
+    return _mesh(shape, names)
 
 
 def _mesh(shape: tuple, names: tuple):

@@ -21,8 +21,10 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from repro_torch.core.distributed import all_reduce
 from repro_torch.kernels import ops
 
 _NEG = -1e30
@@ -163,24 +165,36 @@ def windowed_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
-                     window: int = 0) -> torch.Tensor:
+                     window: int = 0, offset: int = 0, group=None,
+                     stats=None) -> torch.Tensor:
     """One-token attention against a cache.
 
     q: (B, 1, KV, G, hd); caches: (B, T, KV, hd); pos: current length.
     window > 0 restricts to the last ``window`` positions (SWA decode).
+    A cache sharded along the sequence holds positions [offset, offset +
+    T) on each rank of ``group``: the softmax's max and sum of
+    exponentials, and the weighted values, are summed over the group.
     """
     b, _, kvh, g, hd = q.shape
     t = k_cache.shape[1]
     scale = 1.0 / (hd ** 0.5)
     s = torch.einsum("bovgh,btvh->bvgt", (q * scale).float(),
                      k_cache.float())
-    idx = torch.arange(t, device=q.device)
+    idx = offset + torch.arange(t, device=q.device)
     valid = idx <= pos
     if window:
         valid = valid & (idx > pos - window)
     s = torch.where(valid, s, _NEG)
-    p = torch.softmax(s, dim=-1)
+    if group is None:
+        p = torch.softmax(s, dim=-1)
+    else:
+        m = all_reduce(group, s.amax(-1, keepdim=True), stats,
+                       op=dist.ReduceOp.MAX)
+        e = torch.exp(s - m)
+        p = e / all_reduce(group, e.sum(-1, keepdim=True), stats)
     out = torch.einsum("bvgt,btvh->bvgh", p.to(q.dtype), v_cache)
+    if group is not None:
+        out = all_reduce(group, out, stats)
     return out.reshape(b, 1, kvh, g, hd)
 
 
@@ -198,15 +212,23 @@ def gelu_mlp(x, w1, w2):
     return F.gelu(x @ w1, approximate="tanh") @ w2
 
 
+_MOE_RESHARD_AXIS = [None]
+
+
+def _moe_reshard_axis():
+    return _MOE_RESHARD_AXIS[0]
+
+
 def set_moe_reshard_axis(axis) -> None:
-    """The reference's launcher hook that reshards MoE hidden activations
-    onto a mesh axis before the down-projection.  On one device there is
-    nothing to reshard: ``None`` (the reference's default) is accepted,
-    an axis raises."""
-    if axis is not None:
-        raise NotImplementedError(
-            f"resharding MoE activations onto axis {axis!r} is not ported "
-            f"yet: ROADMAP.md queue 1 item 8 (sharding)")
+    """The reference's launcher hook: reshard MoE hidden activations onto
+    ``axis`` (a mesh axis name; None, the default, turns it off) before
+    the down-projection.  In the port it applies where that axis is the
+    layers' model axis and the experts are ff-sharded: the
+    down-projection's partial sums are reduce-scattered over the capacity
+    slots, each rank combines its slots' tokens, and the combined outputs
+    are summed.  That changes how the partial sums are reduced, not what
+    they sum to.  Expert-parallel layers make no partial sums."""
+    _MOE_RESHARD_AXIS[0] = axis
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +249,15 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, top_k: int):
 
 
 def _moe_rows(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
-              top_k: int, capacity_factor: float):
+              top_k: int, capacity_factor: float, tp=None, experts=None):
     """The reference's ``moe_ffn`` on each row of x (B, T, d) on its own:
     each row has its own capacity slots, all rows share one product per
-    expert weight.  Returns (out (B, T, d), aux (B,))."""
+    expert weight.  Returns (out (B, T, d), aux (B,)).
+
+    Under ``tp`` the routing is replicated (every rank computes the same
+    capacity and drops) and each rank runs its experts ``experts`` = (e0,
+    e1), or, with ``experts`` None, the ff slice its weights hold of
+    every expert; the outputs are summed over the model group."""
     b, t, d = x.shape
     e = router_w.shape[1]
     cap = int(capacity_factor * top_k * t / e) + 1
@@ -252,39 +279,59 @@ def _moe_rows(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
     # are parked in the last row, which is never read
     dest = torch.where(my_pos < cap, (flat_e * b + rows) * cap + my_pos,
                        e * b * cap).reshape(-1)
+    if tp is not None:
+        x, gate_vals = tp.enter(x), tp.enter(gate_vals)
 
     src = x.repeat_interleave(top_k, dim=1).reshape(-1, d)
     buf = x.new_zeros((e * b * cap + 1, d)).index_add(0, dest, src)
     xe = buf[:-1].view(e, b * cap, d)
+    if experts is not None:
+        xe = xe[experts[0]:experts[1]]
     h = F.silu(torch.bmm(xe, w_gate)) * torch.bmm(xe, w_up)
     ye = torch.bmm(h, w_down)                                # (E, B*cap, d)
+    if experts is not None:
+        ye = F.pad(ye, (0, 0, 0, 0, experts[0], e - experts[1]))
+    flat = ye.reshape(-1, d)
+    slot = dest
+    if tp is not None and experts is None and \
+            _moe_reshard_axis() == tp.axis and flat.shape[0] % tp.size == 0:
+        # the partial sums reduce-scattered over the slots; each rank
+        # combines the pairs of its own slots, the others read the zero row
+        n = flat.shape[0] // tp.size
+        flat = tp.scatter(flat, 0)
+        slot = dest - tp.rank * n
+        slot = torch.where((slot >= 0) & (slot < n), slot, n)
 
     # combine: gather back (dropped pairs read an appended zero row) and
     # weight by the gate in x's type
-    flat_back = torch.cat([ye.reshape(-1, d), x.new_zeros((1, d))])
-    y = flat_back[dest] * gate_vals.reshape(-1, 1).to(x.dtype)
-    return y.view(b, t, top_k, d).sum(2), aux
+    flat_back = torch.cat([flat, x.new_zeros((1, d))])
+    y = flat_back[slot] * gate_vals.reshape(-1, 1).to(x.dtype)
+    out = y.view(b, t, top_k, d).sum(2)
+    return (out if tp is None else tp.sum(out)), aux
 
 
 def moe_ffn_batched(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
-                    top_k: int, capacity_factor: float = 1.25
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
+                    top_k: int, capacity_factor: float = 1.25, tp=None,
+                    experts=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-batch-row dispatch: x (B, S, d) -> (B, S, d), as the reference's
     ``vmap`` of :func:`moe_ffn` over B: each row is routed with its own
-    capacity.  Returns (out, mean aux over the rows)."""
+    capacity.  Returns (out, mean aux over the rows); ``tp`` and
+    ``experts`` as in :func:`_moe_rows`."""
     out, aux = _moe_rows(x, router_w, w_gate, w_up, w_down, top_k=top_k,
-                         capacity_factor=capacity_factor)
+                         capacity_factor=capacity_factor, tp=tp,
+                         experts=experts)
     return out, aux.mean()
 
 
 def moe_ffn(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
-            top_k: int, capacity_factor: float = 1.25
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+            top_k: int, capacity_factor: float = 1.25, tp=None,
+            experts=None) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d); router_w: (d, E); expert weights: (E, d, ff)/(E, ff, d).
 
     Returns (out (T, d), aux_loss ()).  Tokens over capacity are dropped
     (contribute zero) — the standard static-shape MoE contract.
     """
     out, aux = _moe_rows(x[None], router_w, w_gate, w_up, w_down,
-                         top_k=top_k, capacity_factor=capacity_factor)
+                         top_k=top_k, capacity_factor=capacity_factor,
+                         tp=tp, experts=experts)
     return out[0], aux[0]

@@ -17,6 +17,15 @@ Both mixers expose:
     is ``*_scan``);
   * ``*_step``     — single-token decode with explicit carried state
     (O(1) per token).
+
+Both take ``tp`` (``launch.sharding.TensorParallel``, None on one
+device): a rank then runs its channels of mamba1 (``d_inner`` split) or
+its heads of mamba2, with B and C computed on every rank, and returns a
+partial sum of the out-projection.  ``in_proj`` concatenates the parts
+([x | z], [z | x | B | C | dt]), so the block a rank stores is not its
+slice and the layer all-gathers it (:func:`mamba1_local`,
+:func:`mamba2_local`).  x_proj's partial dt, B and C and mamba2's norm
+sum over the model group.
 """
 from __future__ import annotations
 
@@ -74,10 +83,27 @@ class MambaState(NamedTuple):
     ssm: torch.Tensor       # (B, di, state)
 
 
-def _mamba1_select(p: dict, x: torch.Tensor, state: int):
-    """dt, B and C of the conv's output x, and the decay rates a."""
+def mamba1_local(p: dict, tp) -> dict:
+    """The weights of this rank's channels of a mamba1 layer."""
+    di = tp.cfg.d_inner
+    c = [tp.split(di)]
+    (c0, c1), = c
+    out = {"in_proj": tp.take(p, "in_proj", 1,
+                              [(c0, c1), (di + c0, di + c1)]),
+           "dt_proj": tp.take(p, "dt_proj", 1, c)}
+    for name in ("conv", "x_proj", "dt_bias", "A_log", "D", "out_proj"):
+        out[name] = tp.take(p, name, 0, c)
+    return out
+
+
+def _mamba1_select(p: dict, x: torch.Tensor, state: int, tp=None):
+    """dt, B and C of the conv's output x, and the decay rates a; under
+    ``tp`` x_proj's partial sums are summed over the model group."""
     dt_rank = p["dt_proj"].shape[0]
-    dt, bmat, cmat = (x @ p["x_proj"]).split([dt_rank, state, state], -1)
+    xdbl = x @ p["x_proj"]
+    if tp is not None:
+        xdbl = tp.sum_inside(xdbl)
+    dt, bmat, cmat = xdbl.split([dt_rank, state, state], -1)
     dt = F.softplus(dt @ p["dt_proj"] + p["dt_bias"])
     a = -torch.exp(p["A_log"].float())                   # (di, N)
     return dt, bmat, cmat, a
@@ -108,25 +134,31 @@ def mamba1_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
 
 
 def mamba1_forward(p: dict, u: torch.Tensor, *, state: int,
-                   chunk: int = 256, unroll: bool = False) -> torch.Tensor:
+                   chunk: int = 256, unroll: bool = False,
+                   tp=None) -> torch.Tensor:
     """u: (B, S, d) -> (B, S, d).  ``unroll`` is the reference's compile
     switch and has no effect here."""
+    if tp is not None:
+        p, u = mamba1_local(p, tp), tp.enter(u)
     x, z = (u @ p["in_proj"]).chunk(2, dim=-1)           # (B, S, di)
     x = F.silu(causal_conv1d(x, p["conv"]))
-    dt, bmat, cmat, a = _mamba1_select(p, x, state)
+    dt, bmat, cmat, a = _mamba1_select(p, x, state, tp)
     y = mamba1_scan(dt, bmat, cmat, x, a, chunk).to(u.dtype)
     y = y + x * p["D"].to(x.dtype)
     y = y * F.silu(z)
     return y @ p["out_proj"]
 
 
-def mamba1_step(p: dict, u_t: torch.Tensor, st: MambaState, *, state: int
-                ) -> tuple[torch.Tensor, MambaState]:
-    """u_t: (B, d) one token -> (y_t, new state). O(1) in sequence length."""
+def mamba1_step(p: dict, u_t: torch.Tensor, st: MambaState, *, state: int,
+                tp=None) -> tuple[torch.Tensor, MambaState]:
+    """u_t: (B, d) one token -> (y_t, new state). O(1) in sequence length.
+    Under ``tp`` the state holds the rank's channels."""
+    if tp is not None:
+        p = mamba1_local(p, tp)
     x, z = (u_t @ p["in_proj"]).chunk(2, dim=-1)         # (B, di)
     x, conv_new = conv_step(x, st.conv, p["conv"])
     x = F.silu(x)
-    dt, bmat, cmat, a = _mamba1_select(p, x, state)
+    dt, bmat, cmat, a = _mamba1_select(p, x, state, tp)
     decay = torch.exp(dt[..., None].float() * a)         # (B, di, N)
     drive = (dt[..., None] * bmat[:, None, :] * x[..., None]).float()
     h = decay * st.ssm + drive
@@ -147,6 +179,56 @@ class Mamba2State(NamedTuple):
     ssm: torch.Tensor       # (B, nh, hd, N)
 
 
+def _mamba2_ranges(tp) -> tuple:
+    """This rank's heads [n0, n1) and their channels [c0, c1)."""
+    n0, n1 = tp.split(tp.cfg.n_ssm_heads)
+    hd = tp.cfg.ssm_head_dim
+    return n0, n1, n0 * hd, n1 * hd
+
+
+def mamba2_local(p: dict, tp) -> dict:
+    """The weights of this rank's heads of a mamba2 layer: z, x and dt of
+    its heads, B and C whole."""
+    cfg = tp.cfg
+    di, n = cfg.d_inner, cfg.ssm_state
+    n0, n1, c0, c1 = _mamba2_ranges(tp)
+    bc = (2 * di, 2 * di + 2 * n)
+    out = {"in_proj": tp.take(p, "in_proj", 1, [
+        (c0, c1), (di + c0, di + c1), bc,
+        (bc[1] + n0, bc[1] + n1)]),
+        "conv": tp.take(p, "conv", 0, [(c0, c1), (di, di + 2 * n)])}
+    for name in ("A_log", "D", "dt_bias"):
+        out[name] = tp.take(p, name, 0, [(n0, n1)])
+    for name in ("norm_scale", "out_proj"):
+        out[name] = tp.take(p, name, 0, [(c0, c1)])
+    return out
+
+
+def mamba2_conv_channels(tp) -> torch.Tensor:
+    """The conv channels this rank's heads read: their x, then B and C."""
+    cfg = tp.cfg
+    _, _, c0, c1 = _mamba2_ranges(tp)
+    return torch.cat([torch.arange(c0, c1), torch.arange(
+        cfg.d_inner, cfg.d_inner + 2 * cfg.ssm_state)])
+
+
+def mamba2_conv_block(tp, whole: torch.Tensor, new: torch.Tensor,
+                      width: int) -> torch.Tensor:
+    """This rank's block (``width`` channels) of the new conv state of
+    every channel, from the old state ``whole`` (B, K-1, C) and the new
+    state of its own channels ``new``: the x channels of every rank's
+    heads are all-gathered."""
+    if tp.cfg.n_ssm_heads % tp.size:
+        raise ValueError(f"mamba2 decode over a model axis of {tp.size} "
+                         f"needs its {tp.cfg.n_ssm_heads} heads to divide it")
+    c = new.shape[-1] - 2 * tp.cfg.ssm_state
+    last = new[:, -1]
+    x_all = tp.gather(last[:, :c], -1)
+    state = torch.cat([whole[:, 1:], torch.cat([x_all, last[:, c:]],
+                                               -1)[:, None]], 1)
+    return state.narrow(-1, tp.rank * width, width)
+
+
 def _mamba2_split(p: dict, u: torch.Tensor, state: int):
     """z, the conv input xbc and dt of u @ in_proj."""
     di = p["out_proj"].shape[0]
@@ -155,10 +237,15 @@ def _mamba2_split(p: dict, u: torch.Tensor, state: int):
 
 
 def _mamba2_out(p: dict, y: torch.Tensor, z: torch.Tensor,
-                dtype: torch.dtype) -> torch.Tensor:
-    """Gate, grouped RMSNorm and out-projection of y (float32, (..., di))."""
+                dtype: torch.dtype, tp=None) -> torch.Tensor:
+    """Gate, grouped RMSNorm and out-projection of y (float32, (..., di));
+    under ``tp`` the norm's mean square sums over the model group."""
     y = y.to(dtype) * F.silu(z)
-    var = y.float().square().mean(-1, keepdim=True)
+    if tp is None:
+        var = y.float().square().mean(-1, keepdim=True)
+    else:
+        var = tp.sum_inside(y.float().square().sum(-1, keepdim=True)) / \
+            tp.cfg.d_inner
     y = (y.float() * torch.rsqrt(var + 1e-5) *
          (1.0 + p["norm_scale"])).to(dtype)
     return y @ p["out_proj"]
@@ -204,9 +291,12 @@ def mamba2_scan(dt: torch.Tensor, bmat: torch.Tensor, cmat: torch.Tensor,
 
 
 def mamba2_forward(p: dict, u: torch.Tensor, *, state: int, head_dim: int,
-                   chunk: int = 128, unroll: bool = False) -> torch.Tensor:
+                   chunk: int = 128, unroll: bool = False,
+                   tp=None) -> torch.Tensor:
     """u: (B, S, d) -> (B, S, d).  ``unroll`` is the reference's compile
     switch and has no effect here."""
+    if tp is not None:
+        p, u = mamba2_local(p, tp), tp.enter(u)
     bsz, s, _ = u.shape
     di = p["out_proj"].shape[0]
     nh = di // head_dim
@@ -218,11 +308,15 @@ def mamba2_forward(p: dict, u: torch.Tensor, *, state: int, head_dim: int,
     xh = x.reshape(bsz, s, nh, head_dim)
     y = mamba2_scan(dt, bmat, cmat, xh, a, chunk)         # (B, S, nh, hd)
     y = y + xh.float() * p["D"][:, None]
-    return _mamba2_out(p, y.reshape(bsz, s, di), z, u.dtype)
+    return _mamba2_out(p, y.reshape(bsz, s, di), z, u.dtype, tp)
 
 
 def mamba2_step(p: dict, u_t: torch.Tensor, st: Mamba2State, *, state: int,
-                head_dim: int) -> tuple[torch.Tensor, Mamba2State]:
+                head_dim: int, tp=None) -> tuple[torch.Tensor, Mamba2State]:
+    """Under ``tp`` the state holds the rank's heads and the conv state the
+    channels of :func:`mamba2_conv_channels`."""
+    if tp is not None:
+        p = mamba2_local(p, tp)
     bsz = u_t.shape[0]
     di = p["out_proj"].shape[0]
     nh = di // head_dim
@@ -238,5 +332,5 @@ def mamba2_step(p: dict, u_t: torch.Tensor, st: Mamba2State, *, state: int,
     h = decay[..., None, None] * st.ssm + drive
     y = torch.einsum("bhpn,bn->bhp", h, cmat.float())
     y = y + xh.float() * p["D"][:, None]
-    return (_mamba2_out(p, y.reshape(bsz, di), z, u_t.dtype),
+    return (_mamba2_out(p, y.reshape(bsz, di), z, u_t.dtype, tp),
             Mamba2State(conv_new, h))

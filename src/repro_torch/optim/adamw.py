@@ -8,7 +8,10 @@
   a time and one slab of at most :data:`SLAB` elements at a time, so the
   float32 temporaries of a full model (its largest leaf, the stacked
   ``w_gate`` of ``h2o-danube3-4b``, is 24 x 3840 x 10240) never live at
-  once.  The functions still return what the reference returns.
+  once.  The functions still return what the reference returns;
+* on a sharded step (``launch/sharding.py``) the clip sums the squares
+  of a rank's blocks over the model group, and the update works on a
+  rank's ZeRO-1 slices and all-gathers the parameters back.
 
 Trees are nested dicts of tensors; leaves are walked in the reference's
 pytree order (sorted keys).
@@ -61,16 +64,29 @@ def adamw_init(params) -> AdamWState:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, group=None,
+                        replicated=None, stats=None):
     """Scale ``grads`` in place so that their global norm is at most
     ``max_norm``; returns ``(grads, norm before clipping)``, the norm a
-    float32 tensor."""
+    float32 tensor.
+
+    Sharded over a model ``group``, ``grads`` are this rank's blocks: the
+    sum of their squares is all-reduced over the group, except for the
+    leaves ``replicated`` (a matching tree of bools) marks as the same on
+    every rank of it, which count once."""
     leaves = tree_leaves(grads)
-    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:
+    reps = tree_leaves(replicated) if replicated is not None \
+        else [False] * len(leaves)
+    sq, sq_rep = (torch.zeros((), dtype=torch.float32,
+                              device=leaves[0].device) for _ in range(2))
+    for g, rep in zip(leaves, reps):
+        acc = sq_rep if rep else sq
         for (gs,) in _slabs(g):
-            sq += gs.to(torch.float32, copy=True).square_().sum()
-    gn = sq.sqrt()
+            acc += gs.to(torch.float32, copy=True).square_().sum()
+    if group is not None:
+        from repro_torch.core.distributed import all_reduce
+        sq = all_reduce(group, sq, stats)
+    gn = (sq + sq_rep).sqrt() if replicated is not None else sq.sqrt()
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     for g in leaves:
         for (gs,) in _slabs(g):
@@ -81,24 +97,42 @@ def clip_by_global_norm(grads, max_norm: float):
 @torch.no_grad()
 def adamw_update(params, grads, state: AdamWState, *, lr,
                  b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
-                 weight_decay: float = 0.1):
+                 weight_decay: float = 0.1, shards=None, group=None,
+                 stats=None):
     """Returns (params, state), both updated in place.  ``lr`` may be a
     scalar or a schedule value computed from ``state.step`` by the
-    caller."""
+    caller.
+
+    ZeRO-1: ``shards`` (a tree matching ``params``) gives each leaf whose
+    moments are a slice of the parameter as ``(dim, part, parts)``, the
+    part-th of ``parts`` equal slices along ``dim``, or None.  Such a
+    leaf's slice is updated and the parameter is then all-gathered along
+    ``dim`` over ``group`` (the ranks holding the other slices, in part
+    order), so it stays equal on all of them."""
     step = state.step + 1
     t = step.float()
     c1 = 1.0 - b1 ** t
     c2 = 1.0 - b2 ** t
-    for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                          tree_leaves(state.m), tree_leaves(state.v)):
-        for ps, gs, ms, vs in _slabs(p, g, m, v):
+    ps = tree_leaves(params)
+    sh = tree_leaves(shards) if shards is not None else [None] * len(ps)
+    for p, g, m, v, cut in zip(ps, tree_leaves(grads), tree_leaves(state.m),
+                               tree_leaves(state.v), sh):
+        if cut is not None:
+            dim, part, parts = cut
+            n = p.shape[dim] // parts
+            whole, p = p, p.narrow(dim, part * n, n).contiguous()
+            g = g.narrow(dim, part * n, n).contiguous()
+        for pv, gs, ms, vs in _slabs(p, g, m, v):
             gf = gs.float()
             ms.mul_(b1).add_(gf * (1.0 - b1))
             vs.mul_(b2).add_(gf.square() * (1.0 - b2))
             delta = (ms / c1).div_((vs / c2).sqrt_().add_(eps))
-            pf = ps.float()
+            pf = pv.float()
             delta.add_(weight_decay * pf)
-            ps.copy_(pf - lr * delta)
+            pv.copy_(pf - lr * delta)
+        if cut is not None:
+            from repro_torch.core.distributed import all_gather_along
+            whole.copy_(all_gather_along(group, p, dim, stats))
     return params, AdamWState(step=step, m=state.m, v=state.v)
 
 

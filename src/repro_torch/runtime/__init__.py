@@ -6,9 +6,8 @@ Submodules are imported lazily (PEP 562): the Chunks-and-Tasks scheduler
 importable — and fast to import — without torch's CUDA context.
 `compression` (int8 gradient round trip, torch ops) and `fault`
 (heartbeats, failure injection, the restartable ``TrainingRunner``) run
-on either device.  `elastic` plans a smaller mesh after failures; its
-``reshard_tree`` raises :class:`NotImplementedError` naming ROADMAP.md
-queue 1 item 7.
+on either device.  `elastic` plans a smaller mesh after failures and
+moves a tree onto it (``reshard_tree``, by the parameter shardings).
 """
 _EXPORTS = {
     # discrete-event Chunks-and-Tasks runtime simulator (DESIGN.md §4)

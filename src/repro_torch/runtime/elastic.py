@@ -10,9 +10,9 @@ Policy for the production 16x16 pod (DESIGN.md):
   gradient-accumulation microbatches (the launcher picks).
 
 :func:`elastic_remesh_plan` and :class:`RemeshPlan` are the reference's
-pure planning, copied as they are.  Moving a tree onto the new mesh
-(:func:`reshard_tree`) is not ported yet: it raises naming ROADMAP.md
-queue 1 item 7.
+pure planning, copied as they are.  :func:`reshard_tree` moves a tree onto
+the new mesh: each rank keeps the blocks the parameter shardings assign it
+there (``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -61,9 +61,25 @@ def elastic_remesh_plan(mesh_shape: tuple, axis_names: tuple,
         microbatch_scale=scale)
 
 
-def reshard_tree(tree, cfg, new_mesh):
-    """Not ported: moving params onto a new mesh by the parameter
-    shardings."""
-    raise NotImplementedError(
-        "repro_torch.runtime.reshard_tree is not ported yet (ROADMAP.md, "
-        "queue 1 item 7: runtime/elastic.py)")
+def reshard_tree(tree, cfg, new_mesh, *, mesh=None, coords=None):
+    """This rank's blocks on ``new_mesh`` of a tree with the parameter
+    rules' layout (params or some of them, or moments under the same
+    specs).
+
+    ``tree`` holds whole leaves, or, with ``mesh`` (the DeviceMesh they
+    are sharded on now), this rank's blocks there, which are all-gathered
+    over that mesh first.  ``new_mesh`` is a DeviceMesh, or ``{axis:
+    size}`` with the rank's ``coords`` there."""
+    from repro_torch.launch.sharding import (gather_block, param_shardings,
+                                             take_block)
+
+    def walk(node, old, new):
+        if isinstance(node, dict):
+            return {k: walk(v, old and old[k], new[k])
+                    for k, v in node.items()}
+        if old is not None:
+            node = gather_block(node, old, mesh)
+        return take_block(node, new, new_mesh, coords)
+
+    return walk(tree, mesh and param_shardings(cfg, mesh),
+                param_shardings(cfg, new_mesh))

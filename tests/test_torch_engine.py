@@ -361,8 +361,8 @@ class TestEngineContract:
 
     def test_simulator_not_ported(self):
         """The simulator is ported (``ClusterSim`` runs), and so are the
-        training loop's fault injection and elastic planning; moving a
-        tree onto a new mesh is not, and says where it is queued."""
+        training loop's fault injection, elastic planning and moving a
+        tree onto a new mesh (``reshard_tree``: a rank's blocks)."""
         g = PORT.CTGraph(engine="numpy")
         p = PORT.QTParams(32, 16, 4)
         r = PORT.qt_from_dense(g, np.eye(32), p)
@@ -372,5 +372,10 @@ class TestEngineContract:
         assert rt.FaultInjector({3: 0}).schedule == [(3, 0)]
         assert rt.elastic_remesh_plan((16, 16), ("data", "model"),
                                       5).microbatch_scale == 2
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-            rt.reshard_tree({}, None, None)
+        from repro_torch.configs import get_smoke_config
+        cfg = get_smoke_config("llama3_2_3b")
+        full = {"embed": torch.arange(cfg.vocab * cfg.d_model).reshape(
+            cfg.vocab, cfg.d_model)}
+        got = rt.reshard_tree(full, cfg, {"data": 1, "model": 2},
+                              coords={"data": 0, "model": 1})
+        assert torch.equal(got["embed"], full["embed"][cfg.vocab // 2:])

@@ -167,9 +167,22 @@ def test_moe_ffn_batched_matches_reference():
 
 
 def test_moe_reshard_axis_is_a_mesh_hook():
+    """The hook takes a real axis now; without a model group there is no
+    partial sum to reshard, so one device's MoE FFN is unchanged
+    (tests/test_torch_tensor_parallel.py runs it on ranks)."""
+    rng = np.random.default_rng(3)
+    x, rw = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for s in ((16, 8), (8, 4)))
+    w = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+         for s in ((4, 8, 12), (4, 8, 12), (4, 12, 8))]
     L.set_moe_reshard_axis(None)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        L.set_moe_reshard_axis("model")
+    want, _ = L.moe_ffn(x, rw, *w, top_k=2)
+    L.set_moe_reshard_axis("model")
+    try:
+        got, _ = L.moe_ffn(x, rw, *w, top_k=2)
+    finally:
+        L.set_moe_reshard_axis(None)
+    assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------

@@ -263,9 +263,13 @@ class TestContract:
             launch_ranks(os.abort, 2, timeout=120)
 
     def test_production_mesh_waits_for_item_8(self):
+        """The production meshes are ported (queue 1 item 8, step 4): a
+        world of one is refused naming the 256 and 512 ranks they need."""
         from repro_torch.launch import mesh
-        with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        with pytest.raises(ValueError, match="world of 256 ranks"):
             mesh.make_production_mesh()
+        with pytest.raises(ValueError, match="world of 512 ranks"):
+            mesh.make_production_mesh(multi_pod=True)
         assert mesh.make_spmm_mesh() is None     # a world of one
         with pytest.raises(ValueError, match="n_dev=2"):
             mesh.make_spmm_mesh(2)

@@ -205,9 +205,8 @@ class TestFacadeContract:
 
     def test_simulator_not_ported(self):
         """``simulate`` and ``reset_stats`` run now, and so do the training
-        loop's compression, fault injection and elastic planning; what the
-        runtime has not ported (``reshard_tree``) raises and names its
-        ROADMAP item."""
+        loop's compression, fault injection, elastic planning and
+        ``reshard_tree`` (a rank's blocks of a tree on a new mesh)."""
         sess = repro_torch.Session(engine="numpy", leaf_n=16, bs=4)
         sess.from_dense(np.eye(32))
         assert sess.simulate(p=4).n_workers == 4
@@ -218,8 +217,13 @@ class TestFacadeContract:
         assert callable(rt.quantize_int8) and callable(rt.TrainingRunner)
         assert rt.elastic_remesh_plan((4, 2), ("data", "model"),
                                       1).new_shape == (3, 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-            rt.reshard_tree({}, None, None)
+        from repro_torch.configs import get_smoke_config
+        cfg = get_smoke_config("llama3_2_3b")
+        full = {"embed": torch.arange(cfg.vocab * cfg.d_model).reshape(
+            cfg.vocab, cfg.d_model)}
+        got = rt.reshard_tree(full, cfg, {"data": 1, "model": 2},
+                              coords={"data": 0, "model": 1})
+        assert torch.equal(got["embed"], full["embed"][cfg.vocab // 2:])
 
     def test_metrics_source(self):
         sess = repro_torch.Session(engine=TorchEngine(device="cpu"),

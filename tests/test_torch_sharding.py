@@ -4,7 +4,7 @@ data-parallel train step, against the reference on the CPU.
 The spec tables are held equal to the reference's ``PartitionSpec``s on
 abstract meshes of the production layouts (16x16 and 2x16x16; the port
 takes the same layouts as ``{axis: size}`` dicts).  The data-parallel
-``TrainStep`` runs on 4 gloo CPU ranks in one subprocess
+``TrainStep`` (ZeRO-1) runs on 4 gloo CPU ranks in one subprocess
 (``tests/torch_dist_scenarios.py train_step_dp``), each rank comparing
 its step with the one-device step on the whole batch itself.
 """
@@ -247,17 +247,20 @@ def _dp_results() -> dict:
 
 @pytest.mark.parametrize("case", DP_CASES)
 def test_data_parallel_step_equals_the_one_device_step(case):
-    """(data 4, model 1) and (pod 2, data 2, model 1): the averaged loss,
-    metrics and gradients, then the gradient norm, parameters and moments
-    after one step, within 1e-5 of the one-device step on the whole batch
-    on every rank; every rank's parameters and moments equal rank 0's
-    exactly; a rank that skipped the all-reduce would miss."""
+    """(data 4, model 1) and (pod 2, data 2, model 1), ZeRO-1 (the
+    default): the averaged loss, metrics and gradients, then the gradient
+    norm and parameters after one step, within 1e-5 of the one-device step
+    on the whole batch on every rank, and the moments within 1e-5 of the
+    rank's slice of the one-device moments, a quarter of them; every
+    rank's parameters equal rank 0's exactly; a rank that skipped the
+    all-reduce would miss."""
     ranks = _dp_results()[case + "_by_rank"]
     assert len(ranks) == 4
     for r in ranks:
         for key in ("loss", "metrics", "grads", "step_loss", "grad_norm",
                     "params", "moments"):
             assert r[key] <= DP_RTOL, (key, r)
+        assert r["moment_share"] == 0.25
         assert r["across_ranks"] == 0.0
         assert r["comm_bytes"] > 0
         assert r["no_allreduce"] > 100 * DP_RTOL
@@ -287,8 +290,12 @@ def test_auto_microbatch_divides_the_batch_by_the_data_group(mesh, layout):
 
 
 def test_train_step_refuses_a_model_axis():
+    """A model axis no longer refuses: ``TrainStep`` builds over it with
+    the reference's ``zero1=True`` default (its process groups wait for
+    the first step), and its parameter specs are the tables'
+    (tests/test_torch_tensor_parallel.py runs it on ranks)."""
     cfg = get_config("llama3_2_3b")
     for mesh in ({"data": 2, "model": 2}, {"pod": 1, "data": 1, "model": 16}):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8 \\(sharding\\), step 3"):
-            S.TrainStep(cfg, mesh)
+        ts = S.TrainStep(cfg, mesh)
+        assert ts.zero1 and ts.n_model == mesh["model"]
+        assert ts.param_shardings() == S.param_shardings(cfg, mesh)

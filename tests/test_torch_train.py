@@ -263,15 +263,21 @@ def test_microbatched_step_equals_the_reference_accumulation():
 
 
 def test_sharded_pieces_raise_naming_the_roadmap():
-    """What sharding step 3 ports (tensor parallelism, the sharded serve
-    and prefill) raises naming it; the spec tables, batch specs and the
-    data-parallel step run (tests/test_torch_sharding.py)."""
+    """Sharding step 3 runs now: ``ServeStep``, ``make_prefill_fn`` and a
+    ``TrainStep`` over a model axis build (tests/test_torch_tensor_parallel
+    .py runs them on ranks); what still raises is the dry run's
+    ``abstract_inputs``, naming step 5.  The spec tables, batch specs and
+    the data-parallel step run (tests/test_torch_sharding.py)."""
     cfg = get_smoke_config(ARCH)
-    for fn in (lambda: sharding.ServeStep(cfg, None, SHAPE),
-               lambda: sharding.make_prefill_fn(cfg, None),
-               lambda: sharding.TrainStep(cfg, {"data": 1, "model": 2})):
+    mesh = {"data": 1, "model": 2}
+    assert sharding.TrainStep(cfg, mesh).n_model == 2
+    assert sharding.make_prefill_fn(cfg, None).tp is None
+    serve = sharding.ServeStep(cfg, mesh, SHAPE)
+    assert set(serve.cache_shardings()) == {"k", "v"}
+    for fn in (serve.abstract_inputs,
+               lambda: sharding.TrainStep(cfg, mesh).abstract_inputs(SHAPE)):
         with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8 \\(sharding\\), step 3"):
+                           match="queue 1 item 8 \\(sharding\\), step 5"):
             fn()
     assert sharding.batch_axes(None) == ()
     assert sharding.TrainStep(cfg).auto_microbatch(SHAPE) == 1

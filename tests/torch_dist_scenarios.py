@@ -344,16 +344,18 @@ def _rel(got, want) -> float:
 
 
 def _dp_case(mesh, arch, micro, seq=64, global_batch=8):
-    """One step of a smoke config over ``mesh``'s batch group against the
-    one-device step on the whole batch, run by this rank itself; returns
-    the largest relative errors and the parameters' largest distance from
-    rank 0's."""
+    """One ZeRO-1 step of a smoke config over ``mesh``'s batch group
+    against the one-device step on the whole batch, run by this rank
+    itself; returns the largest relative errors (the moments against this
+    rank's slice of the one-device moments), the share of the moments a
+    rank holds and the parameters' largest distance from rank 0's."""
     import torch
     import torch.distributed as tdist
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.data import SyntheticLM
-    from repro_torch.launch.sharding import TrainStep, batch_axes
+    from repro_torch.launch.sharding import TrainStep, batch_axes, \
+        tree_blocks
     from repro_torch.launch.train import batch_to, train_batch
     from repro_torch.models import model as M
     from repro_torch.models.config import ShapeSpec
@@ -398,19 +400,23 @@ def _dp_case(mesh, arch, micro, seq=64, global_batch=8):
     _, _, own = one.grads_fn(shape)(params, mine)
     out["no_allreduce"] = max(_rel(g, w) for g, w in zip(
         tree_leaves(own), tree_leaves(grads1)))
-    p_dp, o_dp, m_dp = dp.step_fn(shape)(fresh(), adamw_init(params), mine)
+    p_dp, o_dp, m_dp = dp.step_fn(shape)(fresh(), dp.adamw_init(params),
+                                         mine)
     p_one, o_one, m_one = one.step_fn(shape)(fresh(), adamw_init(params),
                                              whole)
     out["step_loss"] = _rel(m_dp["loss"], m_one["loss"])
     out["grad_norm"] = _rel(m_dp["grad_norm"], m_one["grad_norm"])
-    state = tree_leaves(p_dp) + tree_leaves(o_dp.m) + tree_leaves(o_dp.v)
-    want = tree_leaves(p_one) + tree_leaves(o_one.m) + tree_leaves(o_one.v)
     out["params"] = max(_rel(g, w) for g, w in zip(tree_leaves(p_dp),
                                                    tree_leaves(p_one)))
-    out["moments"] = max(_rel(g, w) for g, w in zip(state[len(want) // 3:],
-                                                    want[len(want) // 3:]))
+    # ZeRO-1: this rank's moments are its slice of the one-device moments
+    zspecs = dp.opt_shardings().m
+    out["moments"] = max(
+        _max_rel(o_dp.m, tree_blocks(o_one.m, zspecs, mesh)),
+        _max_rel(o_dp.v, tree_blocks(o_one.v, zspecs, mesh)))
+    out["moment_share"] = sum(t.numel() for t in tree_leaves(o_dp.m)) / \
+        sum(t.numel() for t in tree_leaves(o_one.m))
     across = torch.zeros(())
-    for t in state:
+    for t in tree_leaves(p_dp):
         ref = t.clone()
         tdist.broadcast(ref, 0)
         across = torch.maximum(across, (t - ref).abs().max())
@@ -438,6 +444,271 @@ def train_step_dp(rank, p):
         out[f"{name}/auto_microbatch"] = {
             arch: TrainStep(get_config(arch), mesh).auto_microbatch(TRAIN_4K)
             for arch in ARCH_IDS}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism and ZeRO-1 (launch/sharding.py on a model axis)
+# ---------------------------------------------------------------------------
+
+#: the layouts of the tensor-parallel cases on 4 ranks: (data, model)
+TP_LAYOUTS = {"d2m2": (2, 2), "d1m4": (1, 4)}
+#: the train cases: every smoke config, and phi3.5-moe scaled to 16
+#: experts (expert-parallel; its smoke config's 4 experts shard the ff)
+TP_TRAIN = ("llama3_2_3b", "stablelm_12b", "h2o_danube3_4b", "olmo_1b",
+            "phi3_5_moe", "phi3_5_moe_e16", "mixtral_8x7b", "hubert_xlarge",
+            "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
+#: one architecture of each family for decode and prefill (hubert has no
+#: decode step)
+TP_SERVE = ("h2o_danube3_4b", "mixtral_8x7b", "phi3_5_moe_e16",
+            "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
+TP_SEQ, TP_BATCH, TP_DECODE = 64, 4, 8
+#: a first step at the peak learning rate (no warmup), so that the
+#: parameters move
+TP_STEP_KW = dict(peak_lr=1e-2, warmup=0, total_steps=10)
+
+
+def tp_config(arch):
+    from repro_torch.configs import get_smoke_config
+    if arch == "phi3_5_moe_e16":
+        return get_smoke_config("phi3_5_moe").scaled(n_experts=16)
+    return get_smoke_config(arch)
+
+
+def _tp_mesh(layout):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", TP_LAYOUTS[layout],
+                            mesh_dim_names=("data", "model"))
+
+
+def _rows(mesh, n):
+    """This rank's rows of a batch of n over the mesh's data axis."""
+    coord = dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+    per = n // mesh.mesh.shape[0]
+    return slice(coord["data"] * per, (coord["data"] + 1) * per)
+
+
+def _blocks(tree, specs, mesh):
+    """This rank's blocks of a tree of whole leaves, as fresh tensors."""
+    from repro_torch.launch.sharding import tree_blocks
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: t.clone(), tree_blocks(tree, specs, mesh))
+
+
+def _max_rel(got, want) -> float:
+    from repro_torch.optim.adamw import tree_leaves
+    return max(_rel(g.float(), w.float()) for g, w in
+               zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _tp_train_case(mesh, arch):
+    """One ZeRO-1 step on ``mesh`` against the one-device step on the
+    whole batch: loss, metrics, gradient blocks, the gradient norm, the
+    parameter blocks and the moment slices after the step; the
+    parameters' largest difference across the data ranks; a run that
+    skips one all-reduce of the layers (the control)."""
+    import torch
+
+    from repro_torch.core import distributed as cdist
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.sharding import (TrainStep, axes_group,
+                                             tree_blocks)
+    from repro_torch.launch.train import batch_to, train_batch
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = tp_config(arch)
+    b, seq = TP_BATCH, TP_SEQ
+    shape = ShapeSpec("tp", "train", seq, b)
+    whole = batch_to(cfg, train_batch(
+        cfg, SyntheticLM(cfg.vocab, seq, b, seed=3), 0, b, seq), "cpu")
+    mine = {k: v[_rows(mesh, b)] for k, v in whole.items()}
+    full = M.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    tp = TrainStep(cfg, mesh, zero1=True, **TP_STEP_KW)
+    one = TrainStep(cfg, **TP_STEP_KW)
+    specs = tp.param_shardings()
+    loss, metrics, grads = tp.grads_fn(shape)(_blocks(full, specs, mesh),
+                                              mine)
+    loss1, metrics1, grads1 = one.grads_fn(shape)(full, whole)
+    out = {"loss": _rel(loss, loss1),
+           "metrics": max(_rel(metrics[k], metrics1[k]) for k in metrics1),
+           "grads": _max_rel(grads, tree_blocks(grads1, specs, mesh)),
+           "gathered": sorted(tp.tp.stats.gathered)}
+    # the control: the layers' second all-reduce skipped
+    ctl = TrainStep(cfg, mesh, zero1=True, **TP_STEP_KW)
+    ctl._build()
+    ctl.tp.drop_sum(1)
+    c_loss, _, c_grads = ctl.grads_fn(shape)(_blocks(full, specs, mesh), mine)
+    out["control"] = max(_rel(c_loss, loss1), _max_rel(
+        c_grads, tree_blocks(grads1, specs, mesh)))
+    # one step
+    params = _blocks(full, specs, mesh)
+    p1, o1, m1 = one.step_fn(shape)(
+        M.init_params(cfg, torch.Generator().manual_seed(5), device="cpu"),
+        adamw_init(full), whole)
+    params, opt, m = tp.step_fn(shape)(params, tp.adamw_init(params), mine)
+    zspecs = tp.opt_shardings().m
+    # the one-device AdamW on this rank's blocks, given its gradients
+    mine_p = _blocks(full, specs, mesh)
+    scale = torch.clamp(tp.clip_norm / (m["grad_norm"] + 1e-9), max=1.0)
+    upd, _ = adamw_update(mine_p, tree_map(lambda g: g.float() * scale,
+                                           grads), adamw_init(mine_p),
+                          lr=m["lr"])
+    flat = [torch.cat([t.reshape(-1) for t in tree_leaves(x)])
+            for x in (params, tree_blocks(p1, specs, mesh))]
+    out.update(step_loss=_rel(m["loss"], m1["loss"]),
+               grad_norm=_rel(m["grad_norm"], m1["grad_norm"]),
+               params=_rel(*flat), params_update=_max_rel(params, upd),
+               moments=max(_max_rel(opt.m, tree_blocks(o1.m, zspecs, mesh)),
+                           _max_rel(opt.v, tree_blocks(o1.v, zspecs, mesh))),
+               moment_elems=sum(t.numel() for t in tree_leaves(opt.m)),
+               param_elems=sum(t.numel() for t in tree_leaves(params)),
+               comm_bytes=tp.comm_bytes)
+    across = torch.zeros(())
+    if mesh.mesh.shape[0] > 1:
+        group = axes_group(mesh, ("data",))
+        for t in tree_leaves(params):
+            ref = cdist.broadcast(group, t)
+            across = torch.maximum(across, (t - ref).abs().max())
+    out["across_data_ranks"] = float(across)
+    return out
+
+
+def _tp_serve_case(mesh, arch, batch):
+    """``ServeStep`` teacher-forced over TP_DECODE tokens and
+    ``make_prefill_fn`` against the one-device decode and forward; each
+    step's logits and the cache blocks, and a prefill that skips one
+    all-reduce (the control)."""
+    import torch
+
+    from repro_torch.launch.sharding import (ServeStep, make_prefill_fn,
+                                             param_shardings, tree_blocks)
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+
+    cfg = tp_config(arch)
+    full = M.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    params = _blocks(full, param_shardings(cfg, mesh), mesh)
+    rng = np.random.default_rng(11)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, TP_DECODE)))
+    rows = _rows(mesh, batch) if batch > 1 else slice(0, 1)
+    ss = ServeStep(cfg, mesh, ShapeSpec("d", "decode", TP_DECODE, batch))
+    cache, step = ss.init_cache("cpu"), ss.step_fn()
+    cache1 = M.init_cache(cfg, batch, TP_DECODE, "cpu")
+    worst = 0.0
+    for pos in range(TP_DECODE):
+        got, cache = step(params, toks[rows, pos], cache, pos)
+        want, cache1 = M.decode_step(cfg, full, toks[:, pos], cache1, pos)
+        worst = max(worst, _rel(got, want[rows]))
+    out = {"decode": worst,
+           "cache": _max_rel(cache, tree_blocks(cache1, ss.cache_shardings(),
+                                                mesh)),
+           "decode_gathered": sorted(ss.tp.stats.gathered)}
+    if batch == 1:
+        return out
+    b = TP_BATCH
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab, (b, TP_SEQ)))
+    whole = {"tokens": ids}
+    if cfg.frontend == "patches":
+        whole = {"tokens": ids[:, cfg.n_patches:], "patches": torch.from_numpy(
+            rng.standard_normal((b, cfg.n_patches, cfg.d_model))).float()}
+    mine = {k: v[_rows(mesh, b)] for k, v in whole.items()}
+    want = M.forward(cfg, full, whole, remat=False)[0][_rows(mesh, b)]
+    prefill = make_prefill_fn(cfg, mesh)
+    out["prefill"] = _rel(prefill(params, mine), want)
+    out["prefill_gathered"] = sorted(prefill.tp.stats.gathered)
+    prefill.tp.drop_sum(1)
+    out["prefill_control"] = _rel(prefill(params, mine), want)
+    if cfg.n_experts:
+        from repro_torch.models import layers as L
+        L.set_moe_reshard_axis("model")
+        try:
+            out["prefill_reshard"] = _rel(make_prefill_fn(cfg, mesh)(
+                params, mine), want)
+        finally:
+            L.set_moe_reshard_axis(None)
+    return out
+
+
+def tensor_parallel(rank, p):
+    """Every train case on both layouts; the serve cases on both, the
+    sequence-sharded decode (batch 1) on (data 2, model 2); reshard_tree
+    from (data 2, model 2) blocks onto (data 1, model 4);
+    make_production_mesh on a world of 4."""
+    import torch
+
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.sharding import param_shardings, tree_blocks
+    from repro_torch.models import model as M
+    from repro_torch.runtime import reshard_tree
+    meshes = {name: _tp_mesh(name) for name in TP_LAYOUTS}
+    out = {}
+    for name, mesh in meshes.items():
+        for arch in TP_TRAIN:
+            out[f"train/{name}/{arch}_by_rank"] = _tp_train_case(mesh, arch)
+        for arch in TP_SERVE:
+            out[f"serve/{name}/{arch}_by_rank"] = _tp_serve_case(
+                mesh, arch, TP_BATCH)
+    for arch in TP_SERVE:
+        out[f"serve_b1/d2m2/{arch}_by_rank"] = _tp_serve_case(
+            meshes["d2m2"], arch, 1)
+    cfg = tp_config("zamba2_2_7b")
+    full = M.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    old = _blocks(full, param_shardings(cfg, meshes["d2m2"]), meshes["d2m2"])
+    new = reshard_tree(old, cfg, meshes["d1m4"], mesh=meshes["d2m2"])
+    want = tree_blocks(full, param_shardings(cfg, meshes["d1m4"]),
+                       meshes["d1m4"])
+    out["reshard_by_rank"] = _max_rel(new, want)
+    try:
+        make_production_mesh()
+        out["production_mesh"] = "built"
+    except ValueError as e:
+        out["production_mesh"] = str(e)
+    return out
+
+
+def train_step_tp8(rank, p):
+    """The reference's TestTrainStepOn8Devices on 8 ranks: llama3.2-3b's
+    smoke config on (data 4, model 2), ``TrainStep(cfg, mesh,
+    zero1=True)`` with its defaults, 4 steps of the same seeded batch;
+    the losses, and the one-device port's (rank 0 runs it)."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch.sharding import TrainStep, param_shardings
+    from repro_torch.models import model as M
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.optim import adamw_init
+
+    mesh = init_device_mesh("cpu", (4, 2), mesh_dim_names=("data", "model"))
+    cfg = tp_config("llama3_2_3b")
+    shape = ShapeSpec("t", "train", 64, 8)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (8, 64)))
+             for k in ("tokens", "targets")}
+
+    def losses(step, params, opt, batch):
+        out = []
+        for _ in range(4):
+            params, opt, m = step(params, opt, batch)
+            out.append(float(m["loss"]))
+        return out
+
+    def fresh():
+        return M.init_params(cfg, torch.Generator().manual_seed(0),
+                             device="cpu")
+
+    ts = TrainStep(cfg, mesh, zero1=True)
+    params = _blocks(fresh(), param_shardings(cfg, mesh), mesh)
+    out = {"losses_by_rank": losses(
+        ts.step_fn(shape), params, ts.adamw_init(params),
+        {k: v[_rows(mesh, 8)] for k, v in batch.items()})}
+    if rank == 0:
+        one = TrainStep(cfg)
+        out["one_device"] = losses(one.step_fn(shape), fresh(),
+                                   adamw_init(fresh()), batch)
     return out
 
 
