@@ -183,8 +183,10 @@ dp      — the data-parallel ``TrainStep`` (after frontends): 2 gloo ranks
              parameters across the ranks, which must be 0, and each rank's
              moments, half of them, against the same slice of the
              one-device step's (m within DP_GRAD_BOUND, v within twice
-             it).  The ranks share one card: correctness and counts, no
-             multi-GPU speed.
+             it); its collectives (a reduce-scatter of the gradients, an
+             all-gather of the parameters) no more bytes than an
+             all-reduce of the float32 gradients.  The ranks share one
+             card: correctness and counts, no multi-GPU speed.
 tp      — tensor parallelism (after dp): 2 gloo ranks sharing ``cuda:0``
              on the mesh (data 1, model 2), h2o-danube3-4b at full width,
              each rank holding the blocks of the spec tables.  (a)
@@ -197,11 +199,12 @@ tp      — tensor parallelism (after dp): 2 gloo ranks sharing ``cuda:0``
              tokens: tokens/s, each step's logits within TP_LOGIT_BOUND of
              one device's and the greedy tokens that agree.  (c) A 4-layer
              ``TrainStep`` at 1 x 8192: 8 forward and 4 backward
-             ``wgmma`` launches a rank a pass, the bf16 gradient blocks
-             against the one-device gradient's (reported: bf16 rounding
-             alone puts each 1e-2 to 2e-2 from float32), one timed step
-             whose parameter blocks are within TP_PARAM_BOUND of the
-             one-device step's; then the gradient pass in float32, within
+             ``wgmma`` launches a rank a pass, each bf16 gradient leaf's
+             distance from the float32 gradient at the same weights
+             within TP_BF16_GRAD_RATIO times the one-device bf16
+             gradient's, one timed step whose update (parameters after
+             minus before) is within TP_UPDATE_BOUND of the one-device
+             step's, leaf by leaf; then the gradient pass in float32, within
              TP_GRAD_BOUND (1e-5 sqrt(8192 / 64)) of one device's, which a
              run without layer 0's attention all-reduce must miss.  Per
              rank the collectives' bytes and seconds of each part.
@@ -3268,6 +3271,13 @@ DP_RANKS, DP_LAYERS, DP_SEQ = 2, 2, 8192
 DP_GRAD_BOUND = 2e-2
 
 
+def _leaf_rels(got, want) -> list:
+    """Each leaf's relative Frobenius error, float32 sums."""
+    return [(float((g.float() - w.float()).square().sum()) /
+             max(float(w.float().square().sum()), 1e-60)) ** 0.5
+            for g, w in zip(got, want)]
+
+
 def _rel_errs(got, want) -> tuple:
     """(worst leaf, all leaves) relative Frobenius errors, float32 sums."""
     worst, num, den = 0.0, 0.0, 0.0
@@ -3355,8 +3365,13 @@ def dp_rank(rank: int, p: int) -> dict:
     t0 = time.perf_counter()
     params, opt, m = dp.step_fn(shape)(params, opt, mine)
     torch.cuda.synchronize()
+    # what an all-reduce of the float32 gradients alone would move: a
+    # ring's 2 (p - 1) / p of their bytes
+    ar_bytes = sum(2 * (p - 1) * 4 * t.numel() // p
+                   for t in tree_leaves(params))
     out.update(step_s=time.perf_counter() - t0, comm_s=dp.comm_seconds,
-               comm_bytes=dp.comm_bytes, step_loss=float(m["loss"]),
+               comm_bytes=dp.comm_bytes, allreduce_bytes=ar_bytes,
+               step_loss=float(m["loss"]),
                grad_norm=float(m["grad_norm"]),
                step_launches=launched("step"),
                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -3386,7 +3401,9 @@ def dp_phase(torch) -> dict:
     rank's own gradient (no all-reduce) must miss; then one ZeRO-1 step
     whose parameters are equal on every rank and whose moments are each
     rank's half, within DP_GRAD_BOUND (m) and twice it (v, a square) of
-    the same slice of the one-device step's."""
+    the same slice of the one-device step's, and whose collectives (a
+    reduce-scatter of the gradients, an all-gather of the parameters)
+    move no more than an all-reduce of the float32 gradients would."""
     from repro_torch.launch.mesh import launch_ranks
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3404,9 +3421,10 @@ def dp_phase(torch) -> dict:
         f"{r0['grad_rel_err_all']:.3g}), bound {DP_GRAD_BOUND}; without the "
         f"all-reduce {r0['no_allreduce_rel_err']:.3g} (all "
         f"{r0['no_allreduce_rel_err_all']:.3g})")
-    log(f"    step s {[round(r['step_s'], 4) for r in res]}, all-reduce s "
+    log(f"    step s {[round(r['step_s'], 4) for r in res]}, collectives s "
         f"{[round(r['comm_s'], 4) for r in res]}, bytes "
-        f"{[r['comm_bytes'] for r in res]} a rank; loss "
+        f"{[r['comm_bytes'] for r in res]} a rank (an all-reduce of the "
+        f"float32 gradients {r0['allreduce_bytes']}); loss "
         f"{r0['step_loss']:.6f}, grad_norm {r0['grad_norm']:.6f}; params "
         f"max diff across ranks "
         f"{max(r['across_ranks_max_diff'] for r in res)}; ZeRO-1 moments "
@@ -3431,7 +3449,8 @@ def dp_phase(torch) -> dict:
                r["moment_share"] == 1 / DP_RANKS for r in res):
         raise AssertionError(f"dp: ZeRO-1 moments {res}")
     if not all(np.isfinite(r["step_loss"]) and np.isfinite(r["grad_norm"])
-               and r["comm_bytes"] > 0 for r in res):
+               and 0 < r["comm_bytes"] <= r["allreduce_bytes"] + 64
+               for r in res):
         raise AssertionError(f"dp: step records {res}")
     log(f"    card: {gpu_name_and_limit()}")
     return out
@@ -3452,16 +3471,22 @@ TP_RANKS, TP_PREFILL, TP_DECODE, TP_TRAIN = 2, 8192, (4, 16), (4, 8192)
 TP_LOGIT_BOUND = 3e-2
 #: bound on the worst gradient leaf of the sharded float32 step against
 #: the one-device float32 gradient's blocks: the CPU tests' 1e-5 scaled by
-#: sqrt(S / 64) (PERF.md §4).  In bf16 the one-device gradient is itself
-#: 1e-2 to 2e-2 from the float32 one, so the bf16 comparison is reported,
-#: not bounded
+#: sqrt(S / 64) (PERF.md §4).  float32 runs the fma kernels
 TP_GRAD_BOUND = 1e-5 * (TP_TRAIN[1] / 64) ** 0.5
-#: bound on the parameter blocks after one step (learning rate 3e-4, no
-#: warmup) against the one-device step's, whole tree: AdamW's first update
-#: is about lr sign(g), and a gradient element whose bf16 error flips its
-#: sign moves by 2 lr (6e-4) against weights of about d**-0.5 (0.016);
-#: with a few tenths of a percent flipped, about 4e-3, 5x room
-TP_PARAM_BOUND = 2e-2
+#: bound, leaf by leaf, on the sharded bf16 gradient's distance from the
+#: float32 gradient at the same weights, as a multiple of the one-device
+#: bf16 gradient's own distance (the wgmma kernels' path): the sharded
+#: pass rounds each row-parallel partial sum to bf16 once more before it
+#: is summed, which may add a few times the one-device rounding noise to
+#: a leaf summed over many tokens (a norm scale); a missing all-reduce
+#: or a leaf left out reads about 1 / (the one-device distance), 50-100
+TP_BF16_GRAD_RATIO = 4.0
+#: bound, leaf by leaf, on the sharded step's update (parameters after
+#: minus before) against the one-device step's: AdamW's first update is
+#: about lr sign(g), and a gradient element whose bf16 error flips its
+#: sign moves by 2 lr, so a share f of flipped elements reads about
+#: 2 sqrt(f); an update that is not made reads 1
+TP_UPDATE_BOUND = 0.5
 
 
 def _rel(torch, got, want) -> float:
@@ -3472,6 +3497,15 @@ def _rel(torch, got, want) -> float:
         num += float((g.float() - w.float()).square().sum())
         den += float(w.float().square().sum())
     return (num / max(den, 1e-60)) ** 0.5
+
+
+def drop_one_sum(tp, i: int) -> None:
+    """Make the i-th later call of ``tp.sum`` (from 0) return the rank's
+    partial untouched: the must-fail control.  Every rank drops the same
+    call, since the layers make the same collectives in the same
+    order."""
+    real, calls = tp.sum, iter(range(1 << 30))
+    tp.sum = lambda x: x if next(calls) == i else real(x)
 
 
 def tp_rank(rank: int, p: int, small: bool = False) -> dict:
@@ -3563,7 +3597,7 @@ def tp_rank(rank: int, p: int, small: bool = False) -> dict:
         ops.banded_attention = orig
     out["prefill_heads"] = sorted(set(heads))
     out["prefill"] = stats_of(prefill.tp.stats)
-    prefill.tp.drop_sum(1)
+    drop_one_sum(prefill.tp, 1)
     control = prefill(params, batch)
     if rank == 0:
         with torch.no_grad():
@@ -3608,8 +3642,11 @@ def tp_rank(rank: int, p: int, small: bool = False) -> dict:
     del params, cache, got
     if not small:
         torch.cuda.empty_cache()
-    # (c) the train step
+    # (c) the train step: the gradient pass against one device's, both in
+    # bf16 and held leaf by leaf against the float32 gradient at the same
+    # weights; one timed step, its update against the one-device step's
     cfg = base.scaled(n_layers=n_layers)
+    cfg32 = cfg.scaled(dtype="float32")
     full, params = params_of(cfg)
     batch = batch_to(cfg, SyntheticLM(cfg.vocab, s_train, 1, seed=0)
                      .batch_at(0), dev)
@@ -3628,11 +3665,23 @@ def tp_rank(rank: int, p: int, small: bool = False) -> dict:
     loss1, _, g1 = one.grads_fn(shape)(full, batch)
     specs = ts.param_shardings()
     out["loss_one_device"] = float(loss1)
-    out["bf16_grad_rel_err"], out["bf16_grad_rel_err_all"] = _rel_errs(
-        tree_leaves(grads), tree_leaves(tree_blocks(g1, specs, mesh)))
+    full32 = tree_map(lambda t: t.to(torch.float32, copy=True), full)
+    _, _, g32 = TrainStep(cfg32, **kw).grads_fn(shape)(full32, batch)
+    g32 = tree_map(lambda t: t.clone(), tree_blocks(g32, specs, mesh))
+    names = [".".join(path) for path, _ in M._leaves(g32)]
+    tp_err = _leaf_rels(tree_leaves(grads), tree_leaves(g32))
+    one_err = _leaf_rels(tree_leaves(tree_blocks(g1, specs, mesh)),
+                         tree_leaves(g32))
+    ratios = [a / max(b, 1e-30) for a, b in zip(tp_err, one_err)]
+    worst = max(range(len(ratios)), key=ratios.__getitem__)
+    out.update(bf16_grad_rel_err=max(tp_err),
+               bf16_grad_one_device_rel_err=max(one_err),
+               bf16_grad_ratio=ratios[worst], bf16_grad_ratio_leaf=(
+                   names[worst], tp_err[worst], one_err[worst]))
     del grads, g1
     if not small:
         torch.cuda.empty_cache()
+    before = tree_map(lambda t: t.clone(), params)
     opt = ts.adamw_init(params)
     ts.comm_bytes, ts.comm_seconds = 0, 0.0
     reset_counts()
@@ -3645,29 +3694,30 @@ def tp_rank(rank: int, p: int, small: bool = False) -> dict:
                step_launches=launched("step", want_launch),
                step_comm_bytes=ts.comm_bytes, step_comm_s=ts.comm_seconds)
     p1, _, m1 = one.step_fn(shape)(full, adamw_init(full), batch)
-    flat = [torch.cat([t.float().reshape(-1) for t in tree_leaves(x)])
-            for x in (params, tree_blocks(p1, specs, mesh))]
-    out["param_rel_err"] = _rel(torch, flat[0][None], flat[1][None])
-    out["grad_norm_one_device"] = float(m1["grad_norm"])
-    del full, params, opt, p1, flat
+    upd = _leaf_rels((p.float() - b.float() for p, b in zip(
+        tree_leaves(params), tree_leaves(before))), (
+        w.float() - b.float() for w, b in zip(
+            tree_leaves(tree_blocks(p1, specs, mesh)), tree_leaves(before))))
+    worst = max(range(len(upd)), key=upd.__getitem__)
+    out.update(update_rel_err=upd[worst], update_rel_err_leaf=names[worst],
+               grad_norm_one_device=float(m1["grad_norm"]))
+    del full, params, before, opt, p1
     if not small:
         torch.cuda.empty_cache()
-    # (d) the gradient pass in float32 against one device's, and without
-    # layer 0's attention all-reduce (the control)
-    cfg = cfg.scaled(dtype="float32")
-    full, params = params_of(cfg)
-    _, _, g1 = TrainStep(cfg, **kw).grads_fn(shape)(full, batch)
-    g1 = tree_blocks(g1, specs, mesh)
-    _, _, grads = TrainStep(cfg, mesh, **kw).grads_fn(shape)(params, batch)
+    # (d) the gradient pass in float32 (the fma kernels) against one
+    # device's, and without layer 0's attention all-reduce (the control)
+    params = tree_map(lambda t: t.clone(), tree_blocks(full32, specs, mesh))
+    del full32
+    _, _, grads = TrainStep(cfg32, mesh, **kw).grads_fn(shape)(params, batch)
     out["grad_rel_err"], out["grad_rel_err_all"] = _rel_errs(
-        tree_leaves(grads), tree_leaves(g1))
+        tree_leaves(grads), tree_leaves(g32))
     del grads
-    ctl = TrainStep(cfg, mesh, **kw)
+    ctl = TrainStep(cfg32, mesh, **kw)
     ctl._build()
-    ctl.tp.drop_sum(1)
+    drop_one_sum(ctl.tp, 1)
     _, _, cg = ctl.grads_fn(shape)(params, batch)
     out["control_rel_err"], out["control_rel_err_all"] = _rel_errs(
-        tree_leaves(cg), tree_leaves(g1))
+        tree_leaves(cg), tree_leaves(g32))
     if not small:
         out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     return out
@@ -3679,9 +3729,11 @@ def tp_phase(torch) -> dict:
     prefill and each decode step within TP_LOGIT_BOUND of one device,
     which the prefill without one all-reduce must miss; 24 wgmma forward
     launches a rank on 16 query and 4 kv heads and no gathered leaf; the
-    train step's launches and its parameters within TP_PARAM_BOUND of the
-    one-device step's blocks; its float32 gradients within TP_GRAD_BOUND
-    (the control must miss)."""
+    train step's launches, its bf16 gradient leaves within
+    TP_BF16_GRAD_RATIO of the one-device bf16 gradient's distance from
+    float32, its update within TP_UPDATE_BOUND of the one-device step's,
+    leaf by leaf; its float32 gradients within TP_GRAD_BOUND (the control
+    must miss)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import launch_ranks
     torch.cuda.empty_cache()
@@ -3692,7 +3744,8 @@ def tp_phase(torch) -> dict:
     keys = ("prefill_launches", "grads_launches", "step_launches")
     out = {"ranks": res, "wall_s": time.perf_counter() - t0,
            "bounds": {"logits": TP_LOGIT_BOUND, "grads": TP_GRAD_BOUND,
-                      "params": TP_PARAM_BOUND},
+                      "bf16_grad_ratio": TP_BF16_GRAD_RATIO,
+                      "update": TP_UPDATE_BOUND},
            "launches": {k: sum(r[key][k] for r in res for key in keys)
                         for k in r0["step_launches"]}}
     heads = (cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS)
@@ -3714,21 +3767,25 @@ def tp_phase(torch) -> dict:
         f"agree {r0['greedy_agree']} of {r0['greedy_of']}; collectives bytes "
         f"{[r['decode']['comm_bytes'] for r in res]}, s "
         f"{[round(r['decode']['comm_s'], 4) for r in res]}")
+    bad = max(res, key=lambda r: r["bf16_grad_ratio"])
+    upd = max(res, key=lambda r: r["update_rel_err"])
     log(f"    train {TP_TRAIN[0]} layers, 1 x {TP_TRAIN[1]}: loss "
         f"{r0['loss']:.6f} (one device {r0['loss_one_device']:.6f}); bf16 "
-        f"gradient rel err worst leaf "
-        f"{max(r['bf16_grad_rel_err'] for r in res):.4g} (all "
-        f"{max(r['bf16_grad_rel_err_all'] for r in res):.4g}); float32 "
-        f"gradient rel err worst leaf "
+        f"gradient rel err from float32 at the same weights, worst leaf "
+        f"{max(r['bf16_grad_rel_err'] for r in res):.4g} (one device "
+        f"{max(r['bf16_grad_one_device_rel_err'] for r in res):.4g}); worst "
+        f"ratio {bad['bf16_grad_ratio']:.4g} at {bad['bf16_grad_ratio_leaf']}"
+        f" (bound {TP_BF16_GRAD_RATIO}); float32 gradient rel err worst leaf "
         f"{max(r['grad_rel_err'] for r in res):.4g} (all "
         f"{max(r['grad_rel_err_all'] for r in res):.4g}), bound "
         f"{TP_GRAD_BOUND:.4g}; without layer 0's attention all-reduce "
         f"{min(r['control_rel_err'] for r in res):.4g}; step s "
         f"{[round(r['step_s'], 4) for r in res]}, collectives bytes "
         f"{[r['step_comm_bytes'] for r in res]}, s "
-        f"{[round(r['step_comm_s'], 4) for r in res]}; parameters rel err "
-        f"{max(r['param_rel_err'] for r in res):.4g} (bound "
-        f"{TP_PARAM_BOUND}); launches {out['launches']}; "
+        f"{[round(r['step_comm_s'], 4) for r in res]}; update rel err "
+        f"against one device's, worst leaf {upd['update_rel_err']:.4g} "
+        f"({upd['update_rel_err_leaf']}, bound {TP_UPDATE_BOUND}); "
+        f"launches {out['launches']}; "
         f"max_memory_allocated {[round(r['peak_mem_gb'], 2) for r in res]}"
         f" GB; wall_s={out['wall_s']:.3f} (ranks share one card: counts, "
         f"no multi-GPU speed)")
@@ -3742,7 +3799,9 @@ def tp_phase(torch) -> dict:
         "gradients": all(r["grad_rel_err"] <= TP_GRAD_BOUND for r in res),
         "gradient control misses": all(r["control_rel_err"] > TP_GRAD_BOUND
                                        for r in res),
-        "parameters": all(r["param_rel_err"] <= TP_PARAM_BOUND for r in res),
+        "bf16 gradients": all(r["bf16_grad_ratio"] <= TP_BF16_GRAD_RATIO
+                              for r in res),
+        "update": all(r["update_rel_err"] <= TP_UPDATE_BOUND for r in res),
         "finite": all(np.isfinite(r["step_loss"]) and
                       np.isfinite(r["grad_norm"]) for r in res),
     }

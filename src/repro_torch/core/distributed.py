@@ -663,17 +663,22 @@ SLAB = 1 << 26
 
 @dataclasses.dataclass
 class CommStats:
-    """What a rank's collectives moved: ``bytes`` of every call's payload
-    (an all-reduce's tensor once, an all-gather's result with the rank's own
-    part), ``seconds`` on the host clock, and ``gathered``, the bytes each
-    named leaf's all-gathers returned."""
+    """What a rank's collectives moved: ``bytes`` that a ring algorithm
+    sends from the rank (an all-reduce of n bytes over p ranks
+    2 (p - 1) / p n, an all-gather or a reduce-scatter of a whole of n
+    bytes (p - 1) / p n, a broadcast n), ``seconds`` on the host clock,
+    and ``gathered``, the bytes each named leaf's all-gathers returned."""
     bytes: int = 0
     seconds: float = 0.0
     gathered: dict = dataclasses.field(default_factory=dict)
 
-    def add(self, t: torch.Tensor, t0: float) -> None:
-        self.bytes += t.numel() * t.element_size()
+    def add(self, nbytes: int, t0: float) -> None:
+        self.bytes += nbytes
         self.seconds += time.perf_counter() - t0
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def _wire_copy(group, x: torch.Tensor) -> torch.Tensor:
@@ -688,11 +693,12 @@ def all_reduce(group, x: torch.Tensor, stats: Optional[CommStats] = None,
     tensor of x's type on x's device.  gloo reduces on the host, at most
     :data:`SLAB` elements a round."""
     t0 = time.perf_counter()
+    p = dist.get_world_size(group)
     buf = _wire_copy(group, x)
     for part in buf.view(-1).split(SLAB):
         dist.all_reduce(part, op=op, group=group)
     if stats is not None:
-        stats.add(buf, t0)
+        stats.add(2 * (p - 1) * _nbytes(buf) // p, t0)
     return buf.to(x.device)
 
 
@@ -701,24 +707,44 @@ def all_gather_along(group, x: torch.Tensor, dim: int,
     """Every rank's ``x`` (one shape on all ranks) concatenated along
     ``dim`` in rank order, on x's device."""
     t0 = time.perf_counter()
+    p = dist.get_world_size(group)
     xw = _wire_copy(group, x)
-    outs = [torch.empty_like(xw) for _ in range(dist.get_world_size(group))]
+    outs = [torch.empty_like(xw) for _ in range(p)]
     dist.all_gather(outs, xw, group=group)
     out = torch.cat(outs, dim)
     if stats is not None:
-        stats.add(out, t0)
+        stats.add((p - 1) * _nbytes(xw), t0)
     return out.to(x.device)
 
 
 def reduce_scatter_along(group, x: torch.Tensor, dim: int,
-                         stats: Optional[CommStats] = None) -> torch.Tensor:
+                         stats: Optional[CommStats] = None,
+                         dtype: Optional[torch.dtype] = None
+                         ) -> torch.Tensor:
     """This rank's part (the r-th of p equal parts along ``dim``) of the sum
-    of every rank's ``x``.  gloo has no reduce-scatter on every build, so
-    this is an all-reduce that keeps the rank's part, and is counted as
-    the all-reduce it is."""
-    rank, p = rank_and_size(group)
-    n = x.shape[dim] // p
-    return all_reduce(group, x, stats).narrow(dim, rank * n, n)
+    of every rank's ``x``, in ``dtype`` (x's by default), a new contiguous
+    tensor on x's device.  ``dist.reduce_scatter_tensor``, which NCCL has
+    and gloo has on torch 2.11 and 2.13; at most :data:`SLAB` elements of
+    the whole a round, each converted to ``dtype`` on its way to the
+    wire."""
+    t0 = time.perf_counter()
+    p = dist.get_world_size(group)
+    dtype = dtype or x.dtype
+    rows = x.detach().movedim(dim, 0)
+    whole = rows.reshape(p, -1)
+    m = whole.shape[1]
+    wire = wire_device(group, x.device)
+    out = torch.empty(m, dtype=dtype, device=wire)
+    step = max(1, SLAB // p)
+    for c in range(0, m, step):
+        w = min(step, m - c)
+        part = torch.empty((p, w), dtype=dtype, device=wire)
+        part.copy_(whole[:, c:c + w])
+        dist.reduce_scatter_tensor(out[c:c + w], part.view(-1), group=group)
+    if stats is not None:
+        stats.add((p - 1) * _nbytes(out), t0)
+    out = out.view(rows.shape[0] // p, *rows.shape[1:]).movedim(0, dim)
+    return out.to(x.device).contiguous()
 
 
 def broadcast(group, x: torch.Tensor, src: int = 0,
@@ -729,7 +755,7 @@ def broadcast(group, x: torch.Tensor, src: int = 0,
     for part in buf.view(-1).split(SLAB):
         dist.broadcast(part, src=_global(group, src), group=group)
     if stats is not None:
-        stats.add(buf, t0)
+        stats.add(_nbytes(buf), t0)
     return buf.to(x.device)
 
 
@@ -776,21 +802,6 @@ class _Gather(torch.autograd.Function):
                 None, None, None)
 
 
-class _Scatter(torch.autograd.Function):
-    """Partial sums -> each rank's part of their total along ``dim``;
-    backward is the conjugate all-gather."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group, stats):
-        ctx.dim, ctx.group, ctx.stats = dim, group, stats
-        return reduce_scatter_along(group, x, dim, stats)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (all_gather_along(ctx.group, g.contiguous(), ctx.dim,
-                                 ctx.stats), None, None, None)
-
-
 class ModelGroup:
     """The ranks one tensor-parallel layer spans (a mesh's ``model`` axis),
     as this rank sees them, with the collectives of the layers:
@@ -801,25 +812,16 @@ class ModelGroup:
       (identity; all-reduce backward); ``sum_inside`` is both, for a total
       that partitioned work reads again (the mamba2 norm, the x_proj of
       mamba1);
-    * :meth:`gather` / :meth:`scatter` — all-gather and reduce-scatter
-      along a dim, each the other's backward;
+    * :meth:`gather` — an all-gather along a dim (reduce-scatter
+      backward);
     * :meth:`max` — an all-reduce of maxima (no gradient).
 
-    ``stats`` counts every call.  :meth:`drop_sum` makes one later call
-    of :meth:`sum` return the rank's partial untouched: the must-fail
-    control of the tests.  A group of one rank makes no call."""
+    ``stats`` counts every call.  A group of one rank makes no call."""
 
     def __init__(self, group, stats: Optional[CommStats] = None):
         self.group = group
         self.rank, self.size = rank_and_size(group)
         self.stats = stats if stats is not None else CommStats()
-        self.skip_sum: Optional[int] = None
-        self.n_sums = 0
-
-    def drop_sum(self, i: int) -> None:
-        """Skip the all-reduce of the i-th call of :meth:`sum` from now on
-        (from 0; every rank must drop the same call)."""
-        self.n_sums, self.skip_sum = 0, i
 
     def split(self, n: int) -> tuple[int, int]:
         """This rank's contiguous range of ``n`` items (sizes differ by at
@@ -827,8 +829,7 @@ class ModelGroup:
         return self.rank * n // self.size, (self.rank + 1) * n // self.size
 
     def sum(self, x: torch.Tensor) -> torch.Tensor:
-        i, self.n_sums = self.n_sums, self.n_sums + 1
-        if i == self.skip_sum or self.size == 1:
+        if self.size == 1:
             return x
         return _Sum.apply(x, self.group, self.stats)
 
@@ -844,11 +845,6 @@ class ModelGroup:
         if self.size == 1:
             return x
         return _Gather.apply(x, dim, self.group, self.stats)
-
-    def scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        if self.size == 1:
-            return x
-        return _Scatter.apply(x, dim, self.group, self.stats)
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         if self.size == 1:

@@ -303,7 +303,7 @@ class TensorParallel(cdist.ModelGroup):
                  cache_batch: int = 0):
         super().__init__(mesh.get_group(MODEL_AXIS), stats)
         sizes = mesh_sizes(mesh)
-        self.axis, self.cfg, self.mesh = MODEL_AXIS, cfg, mesh
+        self.cfg, self.mesh = cfg, mesh
         self.coords = mesh_coords(mesh)
         axes = batch_axes(mesh)
         self.n_batch = _axis_size(sizes, axes)
@@ -386,9 +386,10 @@ class TrainStep:
       before the clip, crossing the host in slabs of at most
       ``optim.adamw.SLAB`` elements (gloo ships host tensors);
     * ``zero1`` (the reference's default): the moments are the blocks of
-      ``zero1_shardings``; each rank updates its moment slice and that
-      slice of its parameters, then the parameters are all-gathered over
-      the batch axes (:meth:`adamw_init` makes the moments).
+      ``zero1_shardings``; the gradients are reduce-scattered to each
+      rank's slice, each rank updates its moment slice and that slice of
+      its parameters, then the parameters are all-gathered over the batch
+      axes (:meth:`adamw_init` makes the moments).
       ``comm_bytes`` and ``comm_seconds`` count every collective.
     """
     cfg: ModelConfig
@@ -433,10 +434,28 @@ class TrainStep:
             if self.n_data > 1 else None
         self.tp = tensor_parallel(self.cfg, self.mesh, self.stats)
         self._shards = self._zero1_shards()
-        self._replicated = None
+        self._clip_groups, self._clip_counts = self._clip_plan()
+
+    def _clip_plan(self) -> tuple:
+        """The groups the clip's sum of squares is all-reduced over (the
+        model group, then the batch group under ZeRO-1) and, per leaf,
+        how many ranks of them hold its gradient block alike."""
+        axes, groups = [], []
         if self.tp is not None:
-            self._replicated = tree_map_specs(
-                self.param_shardings(), lambda s: MODEL_AXIS not in s)
+            axes, groups = [MODEL_AXIS], [self.tp.group]
+        if self._shards is not None:
+            axes += list(batch_axes(self.mesh))
+            groups.append(self._group)
+        if not groups:
+            return (), None
+        sizes = mesh_sizes(self.mesh)
+        specs = zero1_shardings(self.cfg, self.mesh, batch_axes(self.mesh)) \
+            if self._shards is not None else self.param_shardings()
+
+        def count(spec):
+            held = {a for e in spec for a in _entry_axes(e)}
+            return math.prod(sizes[a] for a in axes if a not in held)
+        return tuple(groups), tree_map_specs(specs, count)
 
     def param_shardings(self) -> dict:
         return param_shardings(self.cfg, self.mesh)
@@ -512,10 +531,37 @@ class TrainStep:
                 ts.copy_(cdist.all_reduce(self._group, ts.float(),
                                           self.stats).div_(self.n_data))
 
-    def grads_fn(self, shape: Optional[ShapeSpec] = None):
-        """``grads(params, batch) -> (loss, metrics, grads)`` of this
-        rank's batch and parameter blocks: accumulated over the
-        microbatches, averaged over the batch group, not yet clipped."""
+    @torch.no_grad()
+    def _mean(self, loss, metrics: dict, grads: dict, scatter: bool):
+        """The loss, metrics and gradients averaged over the batch group.
+        With ``scatter`` under ZeRO-1 a leaf with a moment slice gets only
+        that slice of the mean (a reduce-scatter summed in float32), the
+        rest an all-reduce: a step moves the bytes of one all-reduce of
+        the gradients."""
+        if self._group is None:
+            return loss, metrics, grads
+        names = sorted(metrics)
+        scalars = torch.stack([loss.float()] + [metrics[k].float()
+                                                for k in names])
+        self._average([scalars])
+        metrics = dict(zip(names, scalars[1:]))
+        cuts = tree_leaves(self._shards) if scatter and \
+            self._shards is not None else [None] * len(tree_leaves(grads))
+        out = []
+        for g, cut in zip(tree_leaves(grads), cuts):
+            if cut is None:
+                self._average([g])
+                out.append(g)
+            else:
+                out.append(cdist.reduce_scatter_along(
+                    self._group, g, cut[0], self.stats, torch.float32)
+                    .div_(self.n_data).to(g.dtype))
+        parts = iter(out)
+        return scalars[0], metrics, tree_map(lambda _: next(parts), grads)
+
+    def _local_grads_fn(self, shape: Optional[ShapeSpec]):
+        """``(loss, metrics, grads)`` of this rank's batch and parameter
+        blocks, accumulated over the microbatches, not yet averaged."""
         cfg = self.cfg
         micro = self.auto_microbatch(shape) if shape is not None else 1
         if cfg.cost_mode:
@@ -538,48 +584,50 @@ class TrainStep:
         def run(params, batch):
             if micro <= 1:
                 loss, metrics, grads = grads_of(params, batch)
-                metrics = {k: v.detach() for k, v in metrics.items()}
-            else:
-                def split(x):
-                    x = torch.as_tensor(x)
-                    return x.reshape(micro, x.shape[0] // micro,
-                                     *x.shape[1:])
+                return loss, {k: v.detach() for k, v in metrics.items()}, \
+                    grads
 
-                mb = {k: split(v) for k, v in batch.items()}
-                grads = tree_map(lambda p: torch.zeros(
-                    p.shape, dtype=torch.float32, device=p.device), params)
-                loss = torch.zeros((), dtype=torch.float32,
-                                   device=tree_leaves(params)[0].device)
-                for i in range(micro):
-                    li, _, gi = grads_of(params,
-                                         {k: v[i] for k, v in mb.items()})
-                    for a, g in zip(tree_leaves(grads), tree_leaves(gi)):
-                        a.add_(g.float())
-                    loss = loss + li
-                for g in tree_leaves(grads):
-                    g.div_(micro)
-                loss = loss / micro
-                metrics = {}
-            if self._group is not None:
-                names = sorted(metrics)
-                scalars = torch.stack([loss.float()] + [
-                    metrics[k].float() for k in names])
-                self._average(tree_leaves(grads) + [scalars])
-                loss = scalars[0]
-                metrics = dict(zip(names, scalars[1:]))
-            return loss, metrics, grads
+            def split(x):
+                x = torch.as_tensor(x)
+                return x.reshape(micro, x.shape[0] // micro, *x.shape[1:])
+
+            mb = {k: split(v) for k, v in batch.items()}
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+            for i in range(micro):
+                li, _, gi = grads_of(params, {k: v[i] for k, v in mb.items()})
+                for a, g in zip(tree_leaves(grads), tree_leaves(gi)):
+                    a.add_(g.float())
+                loss = loss + li
+            for g in tree_leaves(grads):
+                g.div_(micro)
+            return loss / micro, {}, grads
+
+        return run
+
+    def grads_fn(self, shape: Optional[ShapeSpec] = None):
+        """``grads(params, batch) -> (loss, metrics, grads)`` of this
+        rank's batch and parameter blocks: accumulated over the
+        microbatches, averaged over the batch group (whole blocks), not
+        yet clipped."""
+        local = self._local_grads_fn(shape)
+
+        def run(params, batch):
+            return self._mean(*local(params, batch), scatter=False)
 
         return run
 
     def step_fn(self, shape: Optional[ShapeSpec] = None):
-        grads_of = self.grads_fn(shape)
-        tp = self.tp
+        local = self._local_grads_fn(shape)
 
         def step(params, opt_state, batch):
-            loss, metrics, grads = grads_of(params, batch)
+            loss, metrics, grads = self._mean(*local(params, batch),
+                                              scatter=True)
             grads, gnorm = clip_by_global_norm(
-                grads, self.clip_norm, group=tp and tp.group,
-                replicated=self._replicated, stats=self.stats)
+                grads, self.clip_norm, groups=self._clip_groups,
+                counts=self._clip_counts, stats=self.stats)
             lr = cosine_schedule(opt_state.step, peak_lr=self.peak_lr,
                                  warmup=self.warmup, total=self.total_steps)
             params, opt_state = adamw_update(

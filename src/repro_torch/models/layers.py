@@ -215,19 +215,14 @@ def gelu_mlp(x, w1, w2):
 _MOE_RESHARD_AXIS = [None]
 
 
-def _moe_reshard_axis():
-    return _MOE_RESHARD_AXIS[0]
-
-
 def set_moe_reshard_axis(axis) -> None:
     """The reference's launcher hook: reshard MoE hidden activations onto
     ``axis`` (a mesh axis name; None, the default, turns it off) before
-    the down-projection.  In the port it applies where that axis is the
-    layers' model axis and the experts are ff-sharded: the
-    down-projection's partial sums are reduce-scattered over the capacity
-    slots, each rank combines its slots' tokens, and the combined outputs
-    are summed.  That changes how the partial sums are reduced, not what
-    they sum to.  Expert-parallel layers make no partial sums."""
+    the down-projection.  In the reference it is a layout constraint for
+    GSPMD; the port has no GSPMD and stores the axis without changing
+    the computation: ff-sharded experts always sum the down-projection's
+    outputs with one all-reduce over the model group (see
+    :func:`_moe_rows`), and expert-parallel layers the same."""
     _MOE_RESHARD_AXIS[0] = axis
 
 
@@ -292,20 +287,11 @@ def _moe_rows(x: torch.Tensor, router_w, w_gate, w_up, w_down, *,
     if experts is not None:
         ye = F.pad(ye, (0, 0, 0, 0, experts[0], e - experts[1]))
     flat = ye.reshape(-1, d)
-    slot = dest
-    if tp is not None and experts is None and \
-            _moe_reshard_axis() == tp.axis and flat.shape[0] % tp.size == 0:
-        # the partial sums reduce-scattered over the slots; each rank
-        # combines the pairs of its own slots, the others read the zero row
-        n = flat.shape[0] // tp.size
-        flat = tp.scatter(flat, 0)
-        slot = dest - tp.rank * n
-        slot = torch.where((slot >= 0) & (slot < n), slot, n)
 
     # combine: gather back (dropped pairs read an appended zero row) and
     # weight by the gate in x's type
     flat_back = torch.cat([flat, x.new_zeros((1, d))])
-    y = flat_back[slot] * gate_vals.reshape(-1, 1).to(x.dtype)
+    y = flat_back[dest] * gate_vals.reshape(-1, 1).to(x.dtype)
     out = y.view(b, t, top_k, d).sum(2)
     return (out if tp is None else tp.sum(out)), aux
 

@@ -10,8 +10,9 @@
   ``w_gate`` of ``h2o-danube3-4b``, is 24 x 3840 x 10240) never live at
   once.  The functions still return what the reference returns;
 * on a sharded step (``launch/sharding.py``) the clip sums the squares
-  of a rank's blocks over the model group, and the update works on a
-  rank's ZeRO-1 slices and all-gathers the parameters back.
+  of a rank's blocks over the mesh, and the update works on a rank's
+  ZeRO-1 slices of the gradients and moments and all-gathers the
+  parameters back.
 
 Trees are nested dicts of tensors; leaves are walked in the reference's
 pytree order (sorted keys).
@@ -64,29 +65,30 @@ def adamw_init(params) -> AdamWState:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float, *, group=None,
-                        replicated=None, stats=None):
+def clip_by_global_norm(grads, max_norm: float, *, groups=(), counts=None,
+                        stats=None):
     """Scale ``grads`` in place so that their global norm is at most
     ``max_norm``; returns ``(grads, norm before clipping)``, the norm a
     float32 tensor.
 
-    Sharded over a model ``group``, ``grads`` are this rank's blocks: the
-    sum of their squares is all-reduced over the group, except for the
-    leaves ``replicated`` (a matching tree of bools) marks as the same on
-    every rank of it, which count once."""
+    Sharded, ``grads`` are this rank's blocks and ``counts`` a matching
+    tree of how many ranks hold each block alike: each rank adds
+    1 / count of a block's squares, and the sum is all-reduced over each
+    of ``groups`` in turn (the model group, then the batch group), so
+    every leaf counts once."""
     leaves = tree_leaves(grads)
-    reps = tree_leaves(replicated) if replicated is not None \
-        else [False] * len(leaves)
-    sq, sq_rep = (torch.zeros((), dtype=torch.float32,
-                              device=leaves[0].device) for _ in range(2))
-    for g, rep in zip(leaves, reps):
-        acc = sq_rep if rep else sq
+    cnts = tree_leaves(counts) if counts is not None else [1] * len(leaves)
+    sq = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g, n in zip(leaves, cnts):
+        acc = torch.zeros_like(sq)
         for (gs,) in _slabs(g):
             acc += gs.to(torch.float32, copy=True).square_().sum()
-    if group is not None:
+        sq += acc / n
+    if groups:
         from repro_torch.core.distributed import all_reduce
-        sq = all_reduce(group, sq, stats)
-    gn = (sq + sq_rep).sqrt() if replicated is not None else sq.sqrt()
+        for group in groups:
+            sq = all_reduce(group, sq, stats)
+    gn = sq.sqrt()
     scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
     for g in leaves:
         for (gs,) in _slabs(g):
@@ -106,9 +108,10 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
     ZeRO-1: ``shards`` (a tree matching ``params``) gives each leaf whose
     moments are a slice of the parameter as ``(dim, part, parts)``, the
     part-th of ``parts`` equal slices along ``dim``, or None.  Such a
-    leaf's slice is updated and the parameter is then all-gathered along
-    ``dim`` over ``group`` (the ranks holding the other slices, in part
-    order), so it stays equal on all of them."""
+    leaf's gradient is that slice (a reduce-scatter's part); the slice
+    of the parameter is updated and the parameter is then all-gathered
+    along ``dim`` over ``group`` (the ranks holding the other slices, in
+    part order), so it stays equal on all of them."""
     step = state.step + 1
     t = step.float()
     c1 = 1.0 - b1 ** t
@@ -121,7 +124,6 @@ def adamw_update(params, grads, state: AdamWState, *, lr,
             dim, part, parts = cut
             n = p.shape[dim] // parts
             whole, p = p, p.narrow(dim, part * n, n).contiguous()
-            g = g.narrow(dim, part * n, n).contiguous()
         for pv, gs, ms, vs in _slabs(p, g, m, v):
             gf = gs.float()
             ms.mul_(b1).add_(gf * (1.0 - b1))

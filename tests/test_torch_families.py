@@ -167,8 +167,8 @@ def test_moe_ffn_batched_matches_reference():
 
 
 def test_moe_reshard_axis_is_a_mesh_hook():
-    """The hook takes a real axis now; without a model group there is no
-    partial sum to reshard, so one device's MoE FFN is unchanged
+    """The hook takes a real axis and stores it (a layout hint, as the
+    reference's is to GSPMD): one device's MoE FFN is unchanged
     (tests/test_torch_tensor_parallel.py runs it on ranks)."""
     rng = np.random.default_rng(3)
     x, rw = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))

@@ -10,29 +10,40 @@ Two kinds of check:
   (data 1, model 4), each rank holding the blocks of the spec tables and
   comparing itself with the one-device step, decode and forward on the
   whole batch.  The reference's own sharded step cannot run under this
-  JAX (ROADMAP.md §3), so the one-device port is the yardstick, as for
-  the data-parallel step.
+  JAX (ROADMAP.md §3), but its one-device functions do: for one
+  architecture of each family the ranks save their loss, gradient
+  blocks, prefill and decode logits, and this process holds them against
+  the reference's ``loss_fn``, ``forward`` and ``decode_step`` on the
+  same weights (the port's package imports no JAX, on the ranks too).
 * **Without ranks**: the cache and optimizer specs against the
   reference's on abstract meshes of the production layouts, the
   production mesh's layout, and blocks that rebuild every leaf.
 """
+import atexit
 import functools
 import json
 import os
+import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 from repro.configs import ARCH_IDS  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
+from repro.configs import get_smoke_config as jax_smoke_config  # noqa: E402
 from repro.launch import mesh as JMesh  # noqa: E402
 from repro.launch import sharding as JS  # noqa: E402
 from repro.models.config import ALL_SHAPES as J_SHAPES  # noqa: E402
 from repro.models.config import applicable_shapes as j_shapes  # noqa: E402
+from repro.models import model as JM  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, \
     save_checkpoint  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
@@ -44,9 +55,14 @@ from repro_torch.optim import AdamWState  # noqa: E402
 from repro_torch.runtime import reshard_tree  # noqa: E402
 from test_torch_sharding import LAYOUTS, ROOT, SCRIPT, _meshes, \
     _ref_specs  # noqa: E402
+from torch_dist_scenarios import TP_DECODE, TP_REF, tp_config  # noqa: E402
 
 #: the one-device step's float32 tolerance (tests/test_torch_train.py)
 RTOL = 1e-5
+#: the port's gradients and logits against the reference's one-device
+#: functions: tests/test_torch_train.py's GRAD_RTOL and
+#: tests/test_torch_lm.py's LOGIT_ATOL
+REF_GRAD_RTOL, REF_LOGIT_ATOL = 1e-4, 1e-4
 #: the parameters after one step against the one-device step's, whole
 #: tree: AdamW's first update is about lr * sign(g), which turns the
 #: gradients' float32 rounding (up to 4.5e-6 here, zamba2) into up to
@@ -61,8 +77,14 @@ SERVE = ("h2o_danube3_4b", "mixtral_8x7b", "phi3_5_moe_e16",
 TP = ("d2m2", "d1m4")
 
 
+#: where the ranks of ``_tp`` save what the reference comparison reads
+DUMP = pathlib.Path(tempfile.mkdtemp(prefix="tp_dump_"))
+atexit.register(shutil.rmtree, DUMP, True)
+
+
 def _spawn(p: int, scenario: str) -> dict:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               TP_DUMP=str(DUMP))
     res = subprocess.run([sys.executable, str(SCRIPT), str(p), scenario],
                          capture_output=True, text=True, env=env,
                          timeout=240)
@@ -102,7 +124,11 @@ def test_train_step_equals_the_one_device_step(layout, arch):
         assert r["params"] <= STEP_PARAMS_RTOL, r
         assert r["across_data_ranks"] == 0.0
         assert r["moment_elems"] * n_data == r["param_elems"]
-        assert r["comm_bytes"] > 0
+        # ZeRO-1 reduce-scatters the gradients and all-gathers the
+        # parameters: the bytes of the all-reduce step, plus the clip's
+        # float32 sum of squares over the data ranks (a ring's 2 (p-1)/p)
+        clip = 2 * (n_data - 1) * 4 // n_data
+        assert r["comm_bytes"] == r["plain_comm_bytes"] + clip > 0, r
         assert r["control"] > 100 * RTOL, r
 
 
@@ -149,13 +175,93 @@ def test_gathered_leaves_are_named(layout, arch, want):
 
 @pytest.mark.parametrize("layout", TP)
 def test_moe_reshard_axis_changes_how_partial_sums_reduce(layout):
-    """``set_moe_reshard_axis("model")``: mixtral's ff-sharded experts
-    reduce-scatter the down-projection over the capacity slots; the
-    prefill still equals the one-device forward (phi3.5-moe at 16 experts
-    is expert-parallel and makes no partial sums)."""
+    """``set_moe_reshard_axis("model")`` is the reference's layout hint
+    to GSPMD; the port stores it, and the down-projection's partial sums
+    are reduced as without it: the prefill of mixtral's ff-sharded and
+    phi3.5-moe's expert-parallel layers moves the same bytes and equals
+    the one-device forward."""
     for arch in ("mixtral_8x7b", "phi3_5_moe_e16"):
         for r in _tp()[f"serve/{layout}/{arch}_by_rank"]:
             assert r["prefill_reshard"] <= RTOL, r
+            hinted, plain = r["reshard_bytes"]
+            assert hinted == plain > 0, r
+
+
+def _rank_dumps(kind: str, layout: str, arch: str) -> list:
+    _tp()
+    return [torch.load(DUMP / f"{kind}_{layout}_{arch}.r{r}.pt")
+            for r in range(4)]
+
+
+def _jnp(x: torch.Tensor):
+    a = x.numpy()
+    return jnp.asarray(a.astype(np.int32) if a.dtype.kind in "iu" else a)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference(arch: str) -> dict:
+    """The reference's one-device loss and gradients of the train case's
+    batch, forward logits of the serve case's batch and the logits of
+    each decode step, on the weights the ranks start from."""
+    cfg = tp_config(arch)
+    jcfg = jax_smoke_config("phi3_5_moe").scaled(n_experts=16) \
+        if arch == "phi3_5_moe_e16" else jax_smoke_config(arch)
+    full = M.init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    jp = jax.tree_util.tree_map(_jnp, full)
+    train = _rank_dumps("train", "d2m2", arch)[0]
+    serve = _rank_dumps("serve", "d2m2", arch)[0]
+    (loss, _), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: JM.loss_fn(jcfg, p, b), has_aux=True))(
+            jp, {k: _jnp(v) for k, v in train["batch"].items()})
+    logits, _ = JM.forward(jcfg, jp, {k: _jnp(v) for k, v in
+                                      serve["batch"].items()}, remat=False)
+    toks = serve["tokens"]
+    jstep = jax.jit(lambda p, tok, c, pos: JM.decode_step(jcfg, p, tok, c,
+                                                         pos))
+    cache, steps = JM.init_cache(jcfg, toks.shape[0], TP_DECODE), []
+    for pos in range(TP_DECODE):
+        out, cache = jstep(jp, _jnp(toks[:, pos]), cache, jnp.int32(pos))
+        steps.append(np.asarray(out))
+    return {"train_batch": train["batch"], "serve_batch": serve["batch"],
+            "tokens": toks, "loss": float(loss),
+            "grads": jax.tree_util.tree_map(
+                lambda g: torch.from_numpy(np.array(g)), grads),
+            "prefill": np.asarray(logits), "decode": np.stack(steps)}
+
+
+@pytest.mark.parametrize("arch", TP_REF)
+@pytest.mark.parametrize("layout", TP)
+def test_sharded_functions_match_the_reference(layout, arch):
+    """One architecture of each family (dense, moe, mamba1, hybrid, VLM):
+    every rank's loss and gradient blocks of ``TrainStep.grads_fn``,
+    its rows of ``make_prefill_fn``'s logits and of each ``ServeStep``
+    decode step against the reference's one-device ``loss_fn``,
+    ``forward`` and ``decode_step`` on the same weights and inputs,
+    within the tolerances of the port's one-device comparisons."""
+    ref = _reference(arch)
+    cfg = tp_config(arch)
+    mesh = SMALL[layout]
+    specs = S.param_shardings(cfg, mesh)
+    for r in _rank_dumps("train", layout, arch):
+        for k, v in ref["train_batch"].items():
+            assert torch.equal(r["batch"][k], v)
+        np.testing.assert_allclose(float(r["loss"]), ref["loss"], rtol=RTOL)
+        for path, want in M._leaves(ref["grads"]):
+            got, spec = r["grads"], specs
+            for p in path:
+                got, spec = got[p], spec[p]
+            want = S.take_block(want, spec, mesh, r["coords"])
+            assert got.shape == want.shape, path
+            assert float((got - want).norm()) <= REF_GRAD_RTOL * max(
+                float(want.norm()), 1e-30), (path, r["coords"])
+    for r in _rank_dumps("serve", layout, arch):
+        assert torch.equal(r["tokens"], ref["tokens"])
+        rows = slice(*r["rows"])
+        np.testing.assert_allclose(r["prefill"].numpy(),
+                                   ref["prefill"][rows], atol=REF_LOGIT_ATOL)
+        np.testing.assert_allclose(r["decode"].numpy(),
+                                   ref["decode"][:, rows],
+                                   atol=REF_LOGIT_ATOL)
 
 
 def test_reshard_tree_gathers_then_takes_the_new_blocks():

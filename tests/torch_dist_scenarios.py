@@ -16,6 +16,7 @@ and prints its ``RESULT``.  tests/test_torch_mesh.py and
 tests/test_torch_distributed.py drive both.
 """
 import json
+import os
 import pathlib
 import sys
 
@@ -462,10 +463,36 @@ TP_TRAIN = ("llama3_2_3b", "stablelm_12b", "h2o_danube3_4b", "olmo_1b",
 #: decode step)
 TP_SERVE = ("h2o_danube3_4b", "mixtral_8x7b", "phi3_5_moe_e16",
             "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
+#: one architecture of each family, whose ranks' loss, gradient blocks,
+#: prefill and decode logits the tests also hold against the reference's
+#: one-device functions (saved under TP_DUMP)
+TP_REF = ("h2o_danube3_4b", "mixtral_8x7b", "falcon_mamba_7b",
+          "zamba2_2_7b", "internvl2_2b")
 TP_SEQ, TP_BATCH, TP_DECODE = 64, 4, 8
 #: a first step at the peak learning rate (no warmup), so that the
 #: parameters move
 TP_STEP_KW = dict(peak_lr=1e-2, warmup=0, total_steps=10)
+
+
+def drop_one_sum(tp, i):
+    """Make the i-th later call of ``tp.sum`` (from 0) return the rank's
+    partial untouched: the must-fail control.  Every rank drops the same
+    call, since the layers make the same collectives in the same
+    order."""
+    real, calls = tp.sum, iter(range(1 << 30))
+    tp.sum = lambda x: x if next(calls) == i else real(x)
+
+
+def _dump(name, tensors):
+    """Save this rank's tensors for the comparison with the reference in
+    the test process (``TP_DUMP``: a directory; unset, nothing is
+    saved)."""
+    import torch
+    import torch.distributed as tdist
+    root = os.environ.get("TP_DUMP")
+    if root:
+        torch.save(tensors, pathlib.Path(root) /
+                   f"{name}.r{tdist.get_rank()}.pt")
 
 
 def tp_config(arch):
@@ -479,6 +506,15 @@ def _tp_mesh(layout):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh("cpu", TP_LAYOUTS[layout],
                             mesh_dim_names=("data", "model"))
+
+
+def _layout_name(mesh):
+    """``d<data>m<model>``, the key of TP_LAYOUTS."""
+    return "d{}m{}".format(*mesh.mesh.shape)
+
+
+def _coords_of(mesh):
+    return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
 
 
 def _rows(mesh, n):
@@ -505,7 +541,8 @@ def _tp_train_case(mesh, arch):
     """One ZeRO-1 step on ``mesh`` against the one-device step on the
     whole batch: loss, metrics, gradient blocks, the gradient norm, the
     parameter blocks and the moment slices after the step; the
-    parameters' largest difference across the data ranks; a run that
+    parameters' largest difference across the data ranks; the step's
+    counted bytes and those of the same step without ZeRO-1; a run that
     skips one all-reduce of the layers (the control)."""
     import torch
 
@@ -536,10 +573,14 @@ def _tp_train_case(mesh, arch):
            "metrics": max(_rel(metrics[k], metrics1[k]) for k in metrics1),
            "grads": _max_rel(grads, tree_blocks(grads1, specs, mesh)),
            "gathered": sorted(tp.tp.stats.gathered)}
+    if arch in TP_REF:
+        _dump(f"train_{_layout_name(mesh)}_{arch}", {
+            "coords": _coords_of(mesh), "batch": whole, "loss": loss,
+            "grads": grads})
     # the control: the layers' second all-reduce skipped
     ctl = TrainStep(cfg, mesh, zero1=True, **TP_STEP_KW)
     ctl._build()
-    ctl.tp.drop_sum(1)
+    drop_one_sum(ctl.tp, 1)
     c_loss, _, c_grads = ctl.grads_fn(shape)(_blocks(full, specs, mesh), mine)
     out["control"] = max(_rel(c_loss, loss1), _max_rel(
         c_grads, tree_blocks(grads1, specs, mesh)))
@@ -548,7 +589,14 @@ def _tp_train_case(mesh, arch):
     p1, o1, m1 = one.step_fn(shape)(
         M.init_params(cfg, torch.Generator().manual_seed(5), device="cpu"),
         adamw_init(full), whole)
-    params, opt, m = tp.step_fn(shape)(params, tp.adamw_init(params), mine)
+    opt = tp.adamw_init(params)
+    tp.comm_bytes = 0
+    params, opt, m = tp.step_fn(shape)(params, opt, mine)
+    step_bytes = tp.comm_bytes
+    # the same step without ZeRO-1: an all-reduce of the gradients
+    plain = TrainStep(cfg, mesh, zero1=False, **TP_STEP_KW)
+    blocks = _blocks(full, specs, mesh)
+    plain.step_fn(shape)(blocks, plain.adamw_init(blocks), mine)
     zspecs = tp.opt_shardings().m
     # the one-device AdamW on this rank's blocks, given its gradients
     mine_p = _blocks(full, specs, mesh)
@@ -565,7 +613,7 @@ def _tp_train_case(mesh, arch):
                            _max_rel(opt.v, tree_blocks(o1.v, zspecs, mesh))),
                moment_elems=sum(t.numel() for t in tree_leaves(opt.m)),
                param_elems=sum(t.numel() for t in tree_leaves(params)),
-               comm_bytes=tp.comm_bytes)
+               comm_bytes=step_bytes, plain_comm_bytes=plain.comm_bytes)
     across = torch.zeros(())
     if mesh.mesh.shape[0] > 1:
         group = axes_group(mesh, ("data",))
@@ -597,11 +645,12 @@ def _tp_serve_case(mesh, arch, batch):
     ss = ServeStep(cfg, mesh, ShapeSpec("d", "decode", TP_DECODE, batch))
     cache, step = ss.init_cache("cpu"), ss.step_fn()
     cache1 = M.init_cache(cfg, batch, TP_DECODE, "cpu")
-    worst = 0.0
+    worst, steps = 0.0, []
     for pos in range(TP_DECODE):
         got, cache = step(params, toks[rows, pos], cache, pos)
         want, cache1 = M.decode_step(cfg, full, toks[:, pos], cache1, pos)
         worst = max(worst, _rel(got, want[rows]))
+        steps.append(got)
     out = {"decode": worst,
            "cache": _max_rel(cache, tree_blocks(cache1, ss.cache_shardings(),
                                                 mesh)),
@@ -617,16 +666,24 @@ def _tp_serve_case(mesh, arch, batch):
     mine = {k: v[_rows(mesh, b)] for k, v in whole.items()}
     want = M.forward(cfg, full, whole, remat=False)[0][_rows(mesh, b)]
     prefill = make_prefill_fn(cfg, mesh)
-    out["prefill"] = _rel(prefill(params, mine), want)
+    logits = prefill(params, mine)
+    prefill_bytes = prefill.tp.stats.bytes
+    out["prefill"] = _rel(logits, want)
     out["prefill_gathered"] = sorted(prefill.tp.stats.gathered)
-    prefill.tp.drop_sum(1)
+    if arch in TP_REF:
+        _dump(f"serve_{_layout_name(mesh)}_{arch}", {
+            "rows": (_rows(mesh, b).start, _rows(mesh, b).stop),
+            "tokens": toks, "decode": torch.stack(steps), "batch": whole,
+            "prefill": logits})
+    drop_one_sum(prefill.tp, 1)
     out["prefill_control"] = _rel(prefill(params, mine), want)
     if cfg.n_experts:
         from repro_torch.models import layers as L
         L.set_moe_reshard_axis("model")
         try:
-            out["prefill_reshard"] = _rel(make_prefill_fn(cfg, mesh)(
-                params, mine), want)
+            hinted = make_prefill_fn(cfg, mesh)
+            out["prefill_reshard"] = _rel(hinted(params, mine), want)
+            out["reshard_bytes"] = [hinted.tp.stats.bytes, prefill_bytes]
         finally:
             L.set_moe_reshard_axis(None)
     return out
