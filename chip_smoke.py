@@ -744,6 +744,7 @@ def time_kernel(torch, ref, name, args, kw, tf32_must_fail=False) -> dict:
     kernel without 3xTF32's correction terms) must miss the check."""
     from repro_torch.kernels import batched_gemm as kbg
     from repro_torch.kernels import bsmm_pairs as kbp
+    from repro_torch.launch.roofline import kernel_work
 
     if name == "bsmm_pairs":
         a, b, sa, sb, seg = args
@@ -751,9 +752,10 @@ def time_kernel(torch, ref, name, args, kw, tf32_must_fail=False) -> dict:
         sa, sb = sa.clamp(0, a.shape[0] - 1), sb.clamp(0, b.shape[0] - 1)
         bs, elt = a.shape[1], a.element_size()
         valid = int((seg < cap_c).sum())
-        n_bytes = ((a.numel() + b.numel() + cap_c * bs * bs) * elt
-                   + 3 * 4 * sa.shape[0])
-        flops = 2.0 * bs ** 3 * valid
+        flops, n_bytes = kernel_work(
+            "bsmm_pairs", a_blocks=a.shape[0], b_blocks=b.shape[0],
+            c_blocks=cap_c, bs=bs, pairs=sa.shape[0], valid_pairs=valid,
+            itemsize=elt)
         kern = lambda: kbp.bsmm_pairs(a, b, sa, sb, seg,  # noqa: E731
                                       cap_c=cap_c)
         plain = lambda: ref.bsmm_pairs_ref(a, b, sa, sb, seg,  # noqa: E731
@@ -767,8 +769,8 @@ def time_kernel(torch, ref, name, args, kw, tf32_must_fail=False) -> dict:
     else:
         ga, gb = args
         p, bs = ga.shape[0], ga.shape[1]
-        n_bytes = 3 * ga.numel() * ga.element_size()
-        flops = 2.0 * bs ** 3 * p
+        flops, n_bytes = kernel_work("batched_gemm", products=p, bs=bs,
+                                     itemsize=ga.element_size())
         kern = lambda: kbg.batched_gemm(ga, gb)  # noqa: E731
         plain = lambda: ref.batched_gemm_ref(ga, gb)  # noqa: E731
         shape = {"products": int(p), "bs": bs, "dtype": str(ga.dtype)}
@@ -951,6 +953,7 @@ def time_bs8_wave(torch, ref) -> dict:
     k-step dropped must miss), then timed beside its bound, the plain
     version and ``torch.bmm`` on the pre-gathered pairs."""
     from repro_torch.kernels import bsmm_pairs as kbp
+    from repro_torch.launch.roofline import kernel_work
     g, hb = BS8_WAVE
     bs = 8
     sa, sb, seg, n_blocks, cap_c = banded_wave(g, hb)
@@ -970,9 +973,10 @@ def time_bs8_wave(torch, ref) -> dict:
                                  cap_c), want32)
     del want32
     # the blocks the pairs read, once each; C once; sa, sb, seg once
-    n_bytes = ((len(np.unique(sa)) + len(np.unique(sb)) + cap_c) * bs * bs * 4
-               + 12 * len(seg))
-    flops = 2.0 * bs ** 3 * len(seg)
+    flops, n_bytes = kernel_work(
+        "bsmm_pairs", a_blocks=len(np.unique(sa)), b_blocks=len(np.unique(sb)),
+        c_blocks=cap_c, bs=bs, pairs=len(seg), valid_pairs=len(seg),
+        itemsize=4)
     ga, gb = a[sa_d.long()], b[sb_d.long()]
     res = {"ms": cuda_ms(torch, kern), "plain_ms": cuda_ms(torch, plain,
                                                            reps=3),
@@ -2092,7 +2096,8 @@ def time_attention_bwd(torch, ref) -> dict:
     boolean mask (``enable_gqa=True``, a yardstick the port never calls)."""
     import torch.nn.functional as F
     from repro_torch.kernels import block_attention_bwd as kbb
-    from repro_torch.launch.roofline import BF16_FLOPS
+    from repro_torch.launch.roofline import (BF16_FLOPS, band_pairs,
+                                             kernel_work)
 
     h, h_kv, s, d, window = BWD_LAYER
     gen = torch.Generator("cuda").manual_seed(7)
@@ -2131,9 +2136,11 @@ def time_attention_bwd(torch, ref) -> dict:
                         do[j * g:(j + 1) * g], window, True)
 
     pairs = band_pairs(s, window, True)
-    flops = 5 * 2.0 * d * pairs * h      # q k^T, do v^T, dS k, P^T do, dS^T q
-    # q, do, dq and k, v, dk, dv: each read or written once
-    n_bytes = (3 * q.numel() + 4 * k.numel()) * q.element_size()
+    # q k^T, do v^T, dS k, P^T do, dS^T q; q, do, dq and k, v, dk, dv each
+    # read or written once
+    flops, n_bytes = kernel_work(
+        "block_attention_bwd", heads=h, kv_heads=h_kv, seq=s, head_dim=d,
+        window=window, causal=True, itemsize=q.element_size())
     res = {"ms": cuda_ms(torch, kern, reps=3, warmup=1),
            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
            **bound_ms(n_bytes, flops, BF16_FLOPS), "max_abs_err": err,
@@ -2417,14 +2424,6 @@ def check_attention_small(torch, ops, ref) -> float:
     return worst
 
 
-def band_pairs(s: int, window: int, causal: bool) -> int:
-    """(query, key) pairs inside the band of an S x S score matrix."""
-    i = np.arange(s, dtype=np.int64)
-    lo = np.maximum(i - window + 1, 0)
-    hi = i if causal else np.minimum(i + window - 1, s - 1)
-    return int((hi - lo + 1).sum())
-
-
 def time_attention(torch, ref, q, k, v, window, causal) -> dict:
     """The kernel on layer 0's real q, k, v: held against its plain
     version head by head (so that one head's S x S scores fit), then
@@ -2464,11 +2463,13 @@ def time_attention(torch, ref, q, k, v, window, causal) -> dict:
                                      v[i // g:i // g + 1], window,
                                      causal=causal)
 
+    from repro_torch.launch.roofline import (BF16_FLOPS, FP32_FLOPS,
+                                             band_pairs, kernel_work)
     pairs = band_pairs(s, window, causal)
-    flops = 4.0 * d * pairs * h                 # q k^T and p v
-    # q and k, v read once, o written once
-    n_bytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    from repro_torch.launch.roofline import BF16_FLOPS, FP32_FLOPS
+    # q k^T and p v; q and k, v read once, o written once
+    flops, n_bytes = kernel_work(
+        "block_attention", heads=h, kv_heads=int(k.shape[0]), seq=s,
+        head_dim=d, window=window, causal=causal, itemsize=q.element_size())
     peak = BF16_FLOPS if q.dtype == torch.bfloat16 else FP32_FLOPS
     res = {"ms": cuda_ms(torch, kern, reps=5, warmup=1),
            "plain_ms": cuda_ms(torch, plain, reps=1, warmup=0),
@@ -3499,6 +3500,16 @@ def _rel(torch, got, want) -> float:
     return (num / max(den, 1e-60)) ** 0.5
 
 
+def tree_nbytes(tree) -> int:
+    """The bytes of every tensor of nested dicts and tuples (an
+    ``AdamWState`` too)."""
+    if isinstance(tree, dict):
+        return sum(tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(tree_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
 def drop_one_sum(tp, i: int) -> None:
     """Make the i-th later call of ``tp.sum`` (from 0) return the rank's
     partial untouched: the must-fail control.  Every rank drops the same
@@ -3578,6 +3589,7 @@ def tp_rank(rank: int, p: int, small: bool = False) -> dict:
     batch = batch_to(cfg, {"tokens": SyntheticLM(cfg.vocab, n_pre, 1, seed=0)
                            .batch_at(0)["tokens"]}, dev)
     prefill = make_prefill_fn(cfg, mesh)
+    out["prefill_arg_bytes"] = tree_nbytes((params, batch))
     heads, orig = [], ops.banded_attention
 
     def record(q, k, v, **kw):
@@ -3683,6 +3695,7 @@ def tp_rank(rank: int, p: int, small: bool = False) -> dict:
         torch.cuda.empty_cache()
     before = tree_map(lambda t: t.clone(), params)
     opt = ts.adamw_init(params)
+    out["step_arg_bytes"] = tree_nbytes((params, opt, batch))
     ts.comm_bytes, ts.comm_seconds = 0, 0.0
     reset_counts()
     dist.barrier()
@@ -3808,6 +3821,183 @@ def tp_phase(torch) -> dict:
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"tp: failed {failed}")
+    log(f"    card: {gpu_name_and_limit()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase dryrun: the dry run's counts against the real ranks and the card
+# ---------------------------------------------------------------------------
+
+#: the production cells of LM_ARCH that part (a) counts on 16x16
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+#: the cells part (c) runs for real as rank 0 of 16x16 on the card
+DRYRUN_CARD_SHAPES = ("train_4k", "prefill_32k")
+#: the band the card's peak memory above its baseline must lie in, as a
+#: share of the count's peak_bytes (fixed before the first card run)
+DRYRUN_MEM_BAND = 0.15
+
+
+def dryrun_counts_vs_tp(tp: dict) -> dict:
+    """Part (b): each rank of phase tp's mesh (data 1, model TP_RANKS)
+    counted on meta for phase tp's prefill (full depth, 1 x TP_PREFILL)
+    and train step (TP_TRAIN): the collective bytes and the argument bytes
+    must equal, to the byte, what the real ranks' CommStats recorded and
+    the bytes of their blocks on the card, and the kernel calls counted
+    the launches the ranks made."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import ShapeSpec
+    base = get_config(LM_ARCH)
+    n_layers, s_train = TP_TRAIN
+    cells = {"prefill": (base, ShapeSpec("tp", "prefill", TP_PREFILL, 1),
+                         "prefill_launches"),
+             "step": (base.scaled(n_layers=n_layers),
+                      ShapeSpec("tp", "train", s_train, 1), "step_launches")}
+    out, bad = {}, []
+    for r in tp["ranks"]:
+        for name, (cfg, shape, launched) in cells.items():
+            c = D.count_cell(cfg, shape, {"data": 1, "model": TP_RANKS},
+                             {"data": 0, "model": r["rank"]})
+            real = r[name]["comm_bytes"] if name == "prefill" \
+                else r["step_comm_bytes"]
+            calls = {k: v["calls"] for k, v in c["kernels"].items()}
+            want_calls = {k: n for k, n in r[launched].items() if n}
+            row = {"coll": c["coll"], "real_coll": real,
+                   "argument_bytes": c["mem"]["argument_bytes"],
+                   "real_argument_bytes": r[f"{name}_arg_bytes"],
+                   "kernel_calls": calls, "launches": want_calls,
+                   "count_s": c["t_inputs_s"] + c["t_count_s"]}
+            out[f"rank{r['rank']}/{name}"] = row
+            if row["coll"] != real or row["argument_bytes"] != \
+                    row["real_argument_bytes"] or calls != want_calls:
+                bad.append((r["rank"], name, row))
+            log(f"    (b) rank {r['rank']} {name}: collective bytes counted "
+                f"{row['coll']}, on the gloo ranks {real}; argument bytes "
+                f"counted {row['argument_bytes']}, real blocks "
+                f"{row['real_argument_bytes']}; kernel calls {calls}, "
+                f"launched {want_calls}; count {row['count_s']:.2f} s")
+    if bad:
+        raise AssertionError(f"dryrun (b): the count differs from the real "
+                             f"ranks: {bad}")
+    return out
+
+
+def _card_tensor(torch, t, vocab: int):
+    """A card tensor of meta ``t``'s shape and type, made in place:
+    integers drawn below ``vocab``, floats normal * 0.02."""
+    x = torch.empty(t.shape, dtype=t.dtype, device="cuda")
+    if t.dtype == torch.int32:
+        return x.random_(0, vocab)
+    return x.normal_(0.0, 0.02)
+
+
+def _on_card(torch, tree, vocab: int):
+    from repro_torch.optim import AdamWState
+    if isinstance(tree, AdamWState):
+        return AdamWState(step=_on_card(torch, tree.step, vocab).zero_(),
+                          m=_on_card(torch, tree.m, vocab),
+                          v=_on_card(torch, tree.v, vocab))
+    if isinstance(tree, dict):
+        return {k: _on_card(torch, v, vocab) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_on_card(torch, v, vocab) for v in tree)
+    return _card_tensor(torch, tree, vocab)
+
+
+def dryrun_real_rank(torch, shape_name: str) -> dict:
+    """Part (c): rank 0 of LM_ARCH's ``shape_name`` cell on 16x16, as the
+    dry run counts it (``run_cell``'s config), run for real on the card
+    inside a ``fake`` world of 256 ranks: its blocks made on ``cuda:0``
+    (random), one step, whose collectives move nothing (its numbers are
+    not read).  ``max_memory_allocated`` above the baseline taken before
+    the blocks are made must lie within DRYRUN_MEM_BAND of the count's
+    ``peak_bytes``, and the kernels must launch as many times as the count
+    called them, each on wgmma."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import SHAPES_BY_NAME
+    cfg = dataclasses.replace(get_config(LM_ARCH), cost_mode=True)
+    shape = SHAPES_BY_NAME[shape_name]
+    sizes = D.production_mesh_sizes(False)
+    counted = D.count_cell(cfg, shape, sizes)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    with D.fake_world(sizes) as dm:
+        args, step, _ = D.cell_step(cfg, shape, dm)
+        real = _on_card(torch, args, cfg.vocab)
+        del args
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        res = step(*real)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launched = phase_launches()
+        del res, real
+    torch.cuda.empty_cache()
+    calls = {k: v["calls"] for k, v in counted["kernels"].items()}
+    got = {k: n for k, n in launched["launches"].items() if n}
+    wgmma = {k: launched["designs"][k]["wgmma"] for k in got}
+    out = {"shape": shape_name, "step_s": seconds, "peak_bytes": peak,
+           "counted_peak_bytes": counted["mem"]["peak_bytes"],
+           "counted_argument_bytes": counted["mem"]["argument_bytes"],
+           "counted_temp_bytes": counted["mem"]["temp_bytes"],
+           "peak_ratio": peak / counted["mem"]["peak_bytes"],
+           "kernel_calls": calls, "launches": got, "wgmma": wgmma,
+           "count_s": counted["t_inputs_s"] + counted["t_count_s"]}
+    log(f"    (c) rank 0 of {LM_ARCH} {shape_name} on 16x16, on the card in "
+        f"a fake world of 256: step {seconds:.4f} s (one rank, collectives "
+        f"excluded); max_memory_allocated above the baseline {peak} B, the "
+        f"count's peak_bytes {out['counted_peak_bytes']} B (arguments "
+        f"{out['counted_argument_bytes']} + temps "
+        f"{out['counted_temp_bytes']}), ratio {out['peak_ratio']:.4f} "
+        f"(band 1 +- {DRYRUN_MEM_BAND}); kernel calls counted {calls}, "
+        f"launched {got}, on wgmma {wgmma}; count {out['count_s']:.2f} s")
+    if abs(out["peak_ratio"] - 1.0) > DRYRUN_MEM_BAND:
+        raise AssertionError(f"dryrun (c) {shape_name}: the card's peak "
+                             f"{peak} B is not within {DRYRUN_MEM_BAND} of "
+                             f"the count's {out['counted_peak_bytes']} B")
+    if got != calls or wgmma != got:
+        raise AssertionError(f"dryrun (c) {shape_name}: launched {got} "
+                             f"(wgmma {wgmma}), counted {calls}")
+    return out
+
+
+def dryrun_phase(torch, tp: dict) -> dict:
+    """Phase dryrun (``repro_torch.launch.dryrun``, no card needed for the
+    counts): (a) LM_ARCH's DRYRUN_SHAPES cells on 16x16, their roofline
+    terms on the H100's peaks, memory and host seconds; (b) the counts of
+    phase tp's ranks against what they recorded
+    (:func:`dryrun_counts_vs_tp`); (c) rank 0 of DRYRUN_CARD_SHAPES on the
+    card against its count (:func:`dryrun_real_rank`)."""
+    from repro_torch.launch import dryrun as D
+    out = {"cells": {}}
+    for name in DRYRUN_SHAPES:
+        t0 = time.perf_counter()
+        row = D.run_cell(LM_ARCH, name, False, verbose=False)
+        row["host_s"] = time.perf_counter() - t0
+        out["cells"][name] = row
+        rf, m = row["roofline"], row["mem"]
+        log(f"    (a) {LM_ARCH} {name} on 16x16: compute "
+            f"{rf['t_compute_s'] * 1e3:.3f} ms, memory "
+            f"{rf['t_memory_s'] * 1e3:.3f} ms, collective "
+            f"{rf['t_collective_s'] * 1e3:.3f} ms -> {rf['bottleneck']}; "
+            f"useful {rf['useful_fraction']:.4f}, MFU bound "
+            f"{rf['mfu_bound']:.4f}; memory/device {m['argument_bytes']} + "
+            f"{m['temp_bytes']} = {m['peak_bytes']} B; collectives "
+            f"{row['collective_counts']}; host {row['host_s']:.2f} s")
+    out["vs_tp"] = dryrun_counts_vs_tp(tp)
+    out["card"] = {name: dryrun_real_rank(torch, name)
+                   for name in DRYRUN_CARD_SHAPES}
+    out["launches"] = {}
+    for r in out["card"].values():
+        for k, n in r["launches"].items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
     log(f"    card: {gpu_name_and_limit()}")
     return out
 
@@ -4068,6 +4258,13 @@ def main() -> int:
     total = {k: total[k] + tp["launches"].get(k, 0) for k in _build.KERNELS}
     log(f"  tp_s={tp['tp_s']:.3f} launches={total}")
 
+    log("phase dryrun: the dry run's counts against the ranks and the card")
+    t0 = time.perf_counter()
+    dry = dryrun_phase(torch, tp)
+    dry["dryrun_s"] = time.perf_counter() - t0
+    total = {k: total[k] + dry["launches"].get(k, 0) for k in _build.KERNELS}
+    log(f"  dryrun_s={dry['dryrun_s']:.3f} launches={total}")
+
     log("phase lm: h2o-danube3-4b at full width and depth")
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
@@ -4107,7 +4304,8 @@ def main() -> int:
                                  "solvers": solvers, "mesh": mesh,
                                  "families": families,
                                  "frontends": frontends, "dp": dp,
-                                 "tp": tp, "serve": serve,
+                                 "tp": tp, "dryrun": dry,
+                                 "serve": serve,
                                  "trace": trace,
                                  "smoke_s": elapsed}))
     log(card)

@@ -262,8 +262,10 @@ def rank_and_size(group=None) -> tuple[int, int]:
 
 def wire_device(group, device: torch.device) -> torch.device:
     """Where the tensors of ``group``'s collectives live: the rank's CUDA
-    device on NCCL, the host on gloo.  Nothing switches on its own: NCCL
-    with a CPU tensor is refused."""
+    device on NCCL, the host on gloo, the tensor's own device on torch's
+    ``fake`` backend (the dry run's world, ``launch/dryrun.py``, whose
+    collectives move nothing).  Nothing switches on its own: NCCL with a
+    CPU tensor is refused."""
     backend = dist.get_backend(group)
     if backend == "nccl":
         if device.type != "cuda":
@@ -272,6 +274,8 @@ def wire_device(group, device: torch.device) -> torch.device:
         return device
     if backend == "gloo":
         return torch.device("cpu")
+    if backend == "fake":
+        return device
     raise ValueError(f"unsupported process-group backend {backend!r}; "
                      f"pick 'nccl' (CUDA) or 'gloo' (host)")
 
@@ -667,14 +671,21 @@ class CommStats:
     sends from the rank (an all-reduce of n bytes over p ranks
     2 (p - 1) / p n, an all-gather or a reduce-scatter of a whole of n
     bytes (p - 1) / p n, a broadcast n), ``seconds`` on the host clock,
-    and ``gathered``, the bytes each named leaf's all-gathers returned."""
+    and ``gathered``, the bytes each named leaf's all-gathers returned.
+    ``per_op`` and ``counts`` split the bytes and the calls by kind, under
+    the reference's HLO names (``all-reduce``, ``all-gather``,
+    ``reduce-scatter``; ``broadcast``)."""
     bytes: int = 0
     seconds: float = 0.0
     gathered: dict = dataclasses.field(default_factory=dict)
+    per_op: dict = dataclasses.field(default_factory=dict)
+    counts: dict = dataclasses.field(default_factory=dict)
 
-    def add(self, nbytes: int, t0: float) -> None:
+    def add(self, nbytes: int, t0: float, kind: str) -> None:
         self.bytes += nbytes
         self.seconds += time.perf_counter() - t0
+        self.per_op[kind] = self.per_op.get(kind, 0) + nbytes
+        self.counts[kind] = self.counts.get(kind, 0) + 1
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -698,7 +709,7 @@ def all_reduce(group, x: torch.Tensor, stats: Optional[CommStats] = None,
     for part in buf.view(-1).split(SLAB):
         dist.all_reduce(part, op=op, group=group)
     if stats is not None:
-        stats.add(2 * (p - 1) * _nbytes(buf) // p, t0)
+        stats.add(2 * (p - 1) * _nbytes(buf) // p, t0, "all-reduce")
     return buf.to(x.device)
 
 
@@ -713,7 +724,7 @@ def all_gather_along(group, x: torch.Tensor, dim: int,
     dist.all_gather(outs, xw, group=group)
     out = torch.cat(outs, dim)
     if stats is not None:
-        stats.add((p - 1) * _nbytes(xw), t0)
+        stats.add((p - 1) * _nbytes(xw), t0, "all-gather")
     return out.to(x.device)
 
 
@@ -742,7 +753,7 @@ def reduce_scatter_along(group, x: torch.Tensor, dim: int,
         part.copy_(whole[:, c:c + w])
         dist.reduce_scatter_tensor(out[c:c + w], part.view(-1), group=group)
     if stats is not None:
-        stats.add((p - 1) * _nbytes(out), t0)
+        stats.add((p - 1) * _nbytes(out), t0, "reduce-scatter")
     out = out.view(rows.shape[0] // p, *rows.shape[1:]).movedim(0, dim)
     return out.to(x.device).contiguous()
 
@@ -755,7 +766,7 @@ def broadcast(group, x: torch.Tensor, src: int = 0,
     for part in buf.view(-1).split(SLAB):
         dist.broadcast(part, src=_global(group, src), group=group)
     if stats is not None:
-        stats.add(_nbytes(buf), t0)
+        stats.add(_nbytes(buf), t0, "broadcast")
     return buf.to(x.device)
 
 

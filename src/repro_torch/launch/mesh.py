@@ -58,7 +58,9 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 def _mesh(shape: tuple, names: tuple):
     """A DeviceMesh of ``shape`` over the initialised world (CUDA on NCCL,
-    the host on gloo); None for a world of one without a process group."""
+    the host on gloo and on the dry run's ``fake`` backend, whose ranks
+    hold meta or any other tensors); None for a world of one without a
+    process group."""
     if not (dist.is_available() and dist.is_initialized()):
         return None
     from torch.distributed.device_mesh import init_device_mesh

@@ -49,9 +49,6 @@ def roofline_table(rows) -> str:
            "model GF | useful | MFU bound |",
            "|---|---|---|---|---|---|---|---|---|"]
     for r in rows:
-        # the reference's filter, a TPU pod layout, kept as it is: which
-        # mesh names the port's dry-run rows carry is decided with the
-        # port's dry run (ROADMAP.md queue 1 item 8)
         if r["mesh"] != "16x16" or "roofline" not in r:
             continue
         rf = r["roofline"]

@@ -11,22 +11,27 @@ set below 700 W runs slower under load, so a share of these peaks is
 stated beside the card's power limit.
 
 The reference's ``collective_bytes`` parses XLA HLO text, and has no
-counterpart here; :func:`mesh_collective_bytes` reads what the port
-counted instead: the max
-per-device ``collective_bytes`` of a
-:meth:`~repro_torch.launch.mesh_exec.MeshEngine.stats` dict (the bytes its
-ring shifts moved into each rank), or the bytes the halo, demand and
-SpSUMMA multiplies of ``core.distributed`` / ``core.spsumma`` counted
-(the HLO convention: result bytes of each collective, own shard included
-for an all-gather).  :func:`from_mesh_stats` puts that term over
-``NVLINK_BPS``.  The reference's ``from_compiled`` (terms from a JAX
-compiled artifact) waits for the port's dry run (ROADMAP.md queue 1 item
-8).
+counterpart here: the port compiles no program to parse, and its
+collectives count their own bytes where they are called
+(``core.distributed.CommStats``).  :func:`mesh_collective_bytes` reads
+what the mesh multiply counted: the max per-device ``collective_bytes``
+of a :meth:`~repro_torch.launch.mesh_exec.MeshEngine.stats` dict (the
+bytes its ring shifts moved into each rank), or the bytes the halo,
+demand and SpSUMMA multiplies of ``core.distributed`` / ``core.spsumma``
+counted (the HLO convention: result bytes of each collective, own shard
+included for an all-gather).  :func:`from_mesh_stats` puts that term over
+``NVLINK_BPS``.  :func:`from_counted`, the counterpart of the reference's
+``from_compiled``, takes the terms of one rank's step as the dry run
+(``launch/dryrun.py``) counted them.  :func:`kernel_work` gives each
+hand-written kernel's FLOPs and bytes, for the smoke's bounds and the dry
+run's count.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Union
+
+import numpy as np
 
 #: HBM3 bytes/s
 HBM_BPS = 3.35e12
@@ -43,6 +48,8 @@ FP32_3XTF32_FLOPS = TF32_FLOPS / 3
 #: all 18 links of a card; the bytes a device receives move over one
 #: direction, 450 GB/s
 NVLINK_BPS = 900e9 / 2
+#: HBM3 capacity of one card, bytes (80 GB)
+HBM_BYTES = 80e9
 
 
 @dataclasses.dataclass
@@ -51,6 +58,7 @@ class Hardware:
     peak_flops: float = BF16_FLOPS   # dense bf16 FLOP/s
     hbm_bw: float = HBM_BPS          # B/s
     link_bw: float = NVLINK_BPS      # B/s received per card over NVLink
+    hbm_bytes: float = HBM_BYTES     # device memory per card, bytes
 
 
 @dataclasses.dataclass
@@ -140,3 +148,64 @@ def from_mesh_stats(stats: dict, *, flops: float = 0.0,
                     coll_bytes=mesh_collective_bytes(stats),
                     n_chips=max(1, int(stats.get("n_dev") or 1)),
                     hw=Hardware())
+
+
+def from_counted(costs: dict, n_chips: int, hw: Hardware = None,
+                 model_flops: float = 0.0) -> Roofline:
+    """Roofline of one rank's counted step (``launch/dryrun.py``): the
+    ``flops``, ``hbm`` and ``coll`` of ``costs`` per device, the
+    counterpart of the reference's ``from_compiled``."""
+    return Roofline(flops=costs["flops"], hbm_bytes=costs["hbm"],
+                    coll_bytes=costs["coll"], n_chips=n_chips,
+                    hw=hw or Hardware(), model_flops=model_flops)
+
+
+# ---------------------------------------------------------------------------
+# the work of each hand-written kernel: the least it must compute and move
+# ---------------------------------------------------------------------------
+
+def band_pairs(s: int, window: int, causal: bool) -> int:
+    """(query, key) pairs inside the band of an S x S score matrix."""
+    i = np.arange(s, dtype=np.int64)
+    lo = np.maximum(i - window + 1, 0)
+    hi = i if causal else np.minimum(i + window - 1, s - 1)
+    return int((hi - lo + 1).sum())
+
+
+def kernel_work(kernel: str, **shape) -> tuple:
+    """``(flops, bytes)`` of one call of ``kernel`` (a name of
+    ``kernels/_build.py``'s ``KERNELS``): the operations its inputs need
+    and the bytes it must move, each input read once and each output
+    written once.  The bound of a kernel's time is the larger of bytes over
+    ``HBM_BPS`` and FLOPs over the peak of its type.
+
+    * ``block_attention`` / ``block_attention_bwd``: ``heads``,
+      ``kv_heads``, ``seq``, ``head_dim``, ``window``, ``causal``,
+      ``itemsize`` — the forward does q kᵀ and p v over the band's pairs
+      (4 d pairs h), reads q, k, v and writes o; the backward does q kᵀ,
+      do vᵀ, dS k, Pᵀ do and dSᵀ q (10 d pairs h), reads q, do, k, v and
+      writes dq, dk, dv;
+    * ``bsmm_pairs``: ``a_blocks``, ``b_blocks``, ``c_blocks`` (the
+      blocks it reads and writes), ``bs``, ``pairs``, ``valid_pairs``,
+      ``itemsize`` — 2 bs³ a valid pair, the blocks once each and three
+      int32 per pair;
+    * ``batched_gemm``: ``products``, ``bs``, ``itemsize`` — 2 bs³ a
+      product, A, B read and C written once.
+    """
+    if kernel in ("block_attention", "block_attention_bwd"):
+        h, d, elt = shape["heads"], shape["head_dim"], shape["itemsize"]
+        q = h * shape["seq"] * d
+        kv = shape["kv_heads"] * shape["seq"] * d
+        pairs = band_pairs(shape["seq"], shape["window"], shape["causal"])
+        if kernel == "block_attention":
+            return 4.0 * d * pairs * h, (2 * q + 2 * kv) * elt
+        return 5 * 2.0 * d * pairs * h, (3 * q + 4 * kv) * elt
+    if kernel == "bsmm_pairs":
+        bs = shape["bs"]
+        blocks = shape["a_blocks"] + shape["b_blocks"] + shape["c_blocks"]
+        return (2.0 * bs ** 3 * shape["valid_pairs"],
+                blocks * bs * bs * shape["itemsize"] + 3 * 4 * shape["pairs"])
+    if kernel == "batched_gemm":
+        p, bs = shape["products"], shape["bs"]
+        return 2.0 * bs ** 3 * p, 3 * p * bs * bs * shape["itemsize"]
+    raise ValueError(f"kernel_work: unknown kernel {kernel!r}")

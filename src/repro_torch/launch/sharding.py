@@ -27,8 +27,8 @@ rank's parameter and cache blocks, ``make_prefill_fn`` the forward.
 Unlike the reference's pure, jit-compiled steps, the port's update the
 parameters, the optimizer state and the cache in place (one leaf at a
 time, see :mod:`repro_torch.optim.adamw`) and return them.
-``abstract_inputs`` belongs to the dry run (queue 1 item 8, step 5) and
-raises.
+``abstract_inputs`` gives the dry run (``launch/dryrun.py``) a rank's
+inputs as ``meta`` tensors of its blocks.
 """
 from __future__ import annotations
 
@@ -254,6 +254,13 @@ def axes_group(mesh, axes: tuple):
     return _GROUPS[key][1]
 
 
+def release_groups(mesh) -> None:
+    """Forget the subgroups :func:`axes_group` built on ``mesh`` (before its
+    world is destroyed)."""
+    for key in [k for k in _GROUPS if k[0] == id(mesh)]:
+        del _GROUPS[key]
+
+
 def gather_block(x: torch.Tensor, spec: tuple, mesh,
                  stats: Optional[cdist.CommStats] = None) -> torch.Tensor:
     """The whole leaf from this rank's block ``x`` under ``spec`` on
@@ -358,10 +365,41 @@ def tensor_parallel(cfg: ModelConfig, mesh, stats=None
     return TensorParallel(cfg, mesh, stats)
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1 item 8 (sharding), "
-        f"step 5 (launch/dryrun.py)")
+def block_shape(shape: tuple, spec: tuple, mesh, coords=None) -> tuple:
+    """The shape of the block of a leaf of ``shape`` under ``spec`` (padded
+    with unsharded dims) that the rank at ``coords`` holds."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n for _, n in block_slices(shape, spec, mesh, coords))
+
+
+def _coords(mesh, coords):
+    """``coords`` as given, else this rank's on a DeviceMesh, else the
+    origin of a ``{axis: size}`` mesh."""
+    if coords is not None:
+        return coords
+    if isinstance(mesh, Mapping):
+        return {a: 0 for a in mesh}
+    return mesh_coords(mesh)
+
+
+def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _meta_params(cfg: ModelConfig, specs: dict, mesh, coords,
+                 dtype: Optional[torch.dtype] = None) -> dict:
+    """Meta blocks of every parameter leaf under ``specs`` (a tree like the
+    params), in the leaf's type or ``dtype``."""
+    def leaf(path, shape):
+        return _meta(block_shape(shape, _at(specs, path), mesh, coords),
+                     dtype or M.param_dtype(cfg, path[-1]))
+    return _spec_tree(M.param_shapes(cfg), leaf)
+
+
+def _at(tree: dict, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
 
 
 # ---------------------------------------------------------------------------
@@ -473,9 +511,24 @@ class TrainStep:
         return input_specs(self.cfg, shape,
                            batch_spec=(ax if len(ax) > 1 else ax[0],))
 
-    def abstract_inputs(self, shape: ShapeSpec):
-        raise _not_ported("TrainStep.abstract_inputs (the dry run's "
-                          "inputs)")
+    def abstract_inputs(self, shape: ShapeSpec, coords=None):
+        """``(params, opt_state, batch)`` of the rank at ``coords`` (this
+        rank's on a DeviceMesh, the origin of a ``{axis: size}`` mesh) as
+        meta tensors of its blocks: the parameters in their types, the
+        moments float32 blocks of :meth:`opt_shardings`, ``step`` a 0-d
+        int32, the batch blocks of :meth:`batch_shardings`."""
+        cfg, mesh = self.cfg, self.mesh
+        coords = _coords(mesh, coords)
+        params = _meta_params(cfg, self.param_shardings(), mesh, coords)
+        os_specs = self.opt_shardings()
+        opt = AdamWState(
+            step=_meta((), torch.int32),
+            m=_meta_params(cfg, os_specs.m, mesh, coords, torch.float32),
+            v=_meta_params(cfg, os_specs.v, mesh, coords, torch.float32))
+        batch = {k: _meta(block_shape(s.shape, s.spec, mesh, coords),
+                          s.dtype)
+                 for k, s in self.batch_shardings(shape).items()}
+        return params, opt, batch
 
     def _zero1_shards(self):
         """Per leaf ``(dim, part, parts)`` of this rank's ZeRO-1 moment
@@ -703,8 +756,23 @@ class ServeStep:
                             self.shape.seq_len, device=device,
                             mesh=self.mesh)
 
-    def abstract_inputs(self):
-        raise _not_ported("ServeStep.abstract_inputs (the dry run's inputs)")
+    def abstract_inputs(self, coords=None):
+        """``(params, token, cache, pos)`` of the rank at ``coords`` (as
+        :meth:`TrainStep.abstract_inputs`) as meta tensors: its parameter
+        and cache blocks, its rows of the token batch (B_rank,) int32 (the
+        whole batch of 1 when the cache is sharded along the sequence), and
+        ``pos`` a 0-d int32."""
+        cfg, mesh, b = self.cfg, self.mesh, self.shape.global_batch
+        coords = _coords(mesh, coords)
+        params = _meta_params(cfg, param_shardings(cfg, mesh), mesh, coords)
+        specs = self.cache_shardings()
+        cache = {k: _meta(block_shape(shp, specs[k], mesh, coords), dt)
+                 for k, (shp, dt) in M.cache_shapes(
+                     cfg, b, self.shape.seq_len).items()}
+        ax = batch_axes(mesh)
+        tok_spec = ((ax if len(ax) > 1 else ax[0]),) if b > 1 else (None,)
+        token = _meta(block_shape((b,), tok_spec, mesh, coords), torch.int32)
+        return params, token, cache, _meta((), torch.int32)
 
     def step_fn(self):
         cfg, b = self.cfg, self.shape.global_batch

@@ -193,6 +193,14 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return _unflatten(out)
 
 
+def param_dtype(cfg: ModelConfig, name: str) -> torch.dtype:
+    """The type of the parameter leaf ``name``: float32 for the norms,
+    ``D``, ``A_log`` and ``dt_bias``, else the config's type."""
+    if "norm" in name or name in ("D", "A_log", "dt_bias"):
+        return torch.float32
+    return cfg.torch_dtype
+
+
 #: a leaf of more elements is drawn one slice of its leading axis at a time
 _DRAW_SLAB = 2 ** 30
 
@@ -640,15 +648,19 @@ def _decode_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
     ``tp.cache``: when they are the kv heads its query heads read, the
     step writes and reads them; else it writes its block of every kv head's
     new k and v and reads its heads from the blocks all-gathered over the
-    model group.  A sequence-sharded cache (a batch of 1) holds positions
-    ``[offset, offset + T)``; attention combines its softmax over the batch
-    group."""
+    model group.  A cache sharded along the sequence (over the batch axes
+    for a batch of 1) holds positions ``[offset, offset + T)``; attention
+    combines its softmax over the batch group.  Where the model axis shards
+    the sequence (the spec fix-up's home when it divides neither the kv
+    heads nor hd), the rank writes the new position if it is in its block
+    and reads the cache all-gathered along the sequence."""
     b, hd = x.shape[0], cfg.hd
     posb = torch.full((b, 1), pos, device=x.device)
     h0, h1, k0, k1, _ = _head_split(cfg, tp)
     mdim, bdim = _cache_dim(tp, "k", depth)
     seq = bdim == 1
     offset = tp.batch_index * k_cache.shape[1] if seq else 0
+    write_at = tp.rank * k_cache.shape[1] if mdim == 1 else offset
     direct = mdim == 2 and k_cache.shape[2] == k1 - k0 and \
         k0 == tp.rank * (k1 - k0)
     wq = tp.take(p, "wq", 1, [(h0 * hd, h1 * hd)])
@@ -657,11 +669,11 @@ def _decode_attention_tp(cfg: ModelConfig, p: dict, x: torch.Tensor,
     k, v = ((x @ tp.take(p, n, 1, kv_range)).reshape(b, 1, -1, hd)
             for n in ("wk", "wv"))
     k = L.apply_rope(k, posb, cfg.rope_theta)
-    if not direct and mdim is not None:
+    if not direct and mdim not in (None, 1):
         n = k_cache.shape[mdim]
         k, v = (t.narrow(mdim, tp.rank * n, n) for t in (k, v))
-    _write_pos(k_cache, k[:, 0], pos, offset)
-    _write_pos(v_cache, v[:, 0], pos, offset)
+    _write_pos(k_cache, k[:, 0], pos, write_at)
+    _write_pos(v_cache, v[:, 0], pos, write_at)
     kc, vc = k_cache, v_cache
     if not direct:
         if mdim is not None:

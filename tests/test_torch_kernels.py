@@ -337,7 +337,13 @@ class TestDispatch:
         assert torch.equal(got, want)
 
     def test_other_devices_refused(self):
-        a = torch.empty((2, 8, 8), device="meta")
+        """A CUDA tensor goes to the kernel, a CPU one to the plain
+        version and a meta one to the dry run's count
+        (tests/test_torch_dryrun.py); a tensor on any other device (an
+        ``xpu`` fake tensor here) is refused."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        with FakeTensorMode():
+            a = torch.empty((2, 8, 8), device="xpu")
         with pytest.raises(ValueError, match="device"):
             ops.batched_gemm(a, a)
 

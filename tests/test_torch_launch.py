@@ -175,6 +175,28 @@ class TestRoofline:
         for name in ("collective_bytes", "from_compiled"):
             assert not hasattr(RL, name)
 
+    def test_from_counted_and_the_h100_capacity(self):
+        """``from_counted`` takes the per-device terms of a counted step
+        (``launch/dryrun.py``), the counterpart of the reference's
+        ``from_compiled``; the card's 80 GB of HBM3 is ``Hardware``'s
+        capacity, no TPU's 16 GiB."""
+        hw = RL.Hardware()
+        assert hw.hbm_bytes == RL.HBM_BYTES == 80e9
+        costs = {"flops": 989e12, "hbm": 2 * 3.35e12, "coll": 450e9,
+                 "coll_per_op": {"all-reduce": 450e9}}
+        rf = RL.from_counted(costs, 256, model_flops=128 * 989e12)
+        assert (rf.t_compute, rf.t_memory, rf.t_collective) == \
+            pytest.approx((1.0, 2.0, 1.0))
+        assert rf.bottleneck == "memory" and rf.hw == hw
+        assert rf.useful_fraction == pytest.approx(0.5)
+        assert rf.mfu_bound == pytest.approx(0.25)
+        assert rf.row() == RL.Roofline(
+            flops=989e12, hbm_bytes=2 * 3.35e12, coll_bytes=450e9,
+            n_chips=256, hw=hw, model_flops=128 * 989e12).row()
+        slow = RL.Hardware(peak_flops=494.5e12)
+        assert RL.from_counted(costs, 1, slow).t_compute == \
+            pytest.approx(2.0)
+
     def test_chip_smoke_bounds_read_the_roofline_peaks(self):
         """The smoke keeps no peak of its own, and every bound it prints
         is what it was with its former constants."""

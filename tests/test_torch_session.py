@@ -258,7 +258,7 @@ def test_port_imports_neither_jax_nor_repro():
         from repro_torch.launch import mesh, mesh_exec
         from repro_torch import checkpoint, data, optim
         from repro_torch.runtime import compression, fault
-        from repro_torch.launch import sharding, train
+        from repro_torch.launch import dryrun, sharding, train
         from repro_torch.kernels import block_attention_bwd
         assert not torch.cuda.is_initialized()
         assert not torch.distributed.is_initialized()

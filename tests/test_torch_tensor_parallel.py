@@ -72,7 +72,8 @@ STEP_PARAMS_RTOL = 1e-4
 TRAIN = ("llama3_2_3b", "stablelm_12b", "h2o_danube3_4b", "olmo_1b",
          "phi3_5_moe", "phi3_5_moe_e16", "mixtral_8x7b", "hubert_xlarge",
          "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
-SERVE = ("h2o_danube3_4b", "mixtral_8x7b", "phi3_5_moe_e16",
+SERVE = ("h2o_danube3_4b", "h2o_danube3_4b_hd6", "mixtral_8x7b",
+         "phi3_5_moe_e16",
          "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
 TP = ("d2m2", "d1m4")
 
@@ -467,11 +468,16 @@ def _unblock(cfg, blocks: list, mesh: dict) -> dict:
 
 def test_sharded_entry_points_build_on_a_model_axis():
     """A model axis larger than 1 builds (its groups wait for the first
-    step); ``abstract_inputs`` belongs to the dry run (step 5)."""
+    step); ``abstract_inputs``, the dry run's inputs, gives the rank's
+    meta blocks without a process group (tests/test_torch_dryrun.py holds
+    them against the reference's shard shapes)."""
     cfg = get_smoke_config("llama3_2_3b")
     ts = S.TrainStep(cfg, {"data": 2, "model": 2})
     assert (ts.n_data, ts.n_model, ts.zero1) == (2, 2, True)
-    with pytest.raises(NotImplementedError, match="step 5"):
-        ts.abstract_inputs(ALL_SHAPES[0])
+    params, opt, batch = ts.abstract_inputs(ALL_SHAPES[0])
+    assert batch["tokens"].device.type == "meta"
+    assert batch["tokens"].shape == (ALL_SHAPES[0].global_batch // 2,
+                                     ALL_SHAPES[0].seq_len)
+    assert opt.m["embed"].dtype == torch.float32
     assert S.make_prefill_fn(cfg, None).tp is None
     assert S.make_prefill_fn(cfg, {"data": 4, "model": 1}).tp is None

@@ -263,22 +263,30 @@ def test_microbatched_step_equals_the_reference_accumulation():
 
 
 def test_sharded_pieces_raise_naming_the_roadmap():
-    """Sharding step 3 runs now: ``ServeStep``, ``make_prefill_fn`` and a
-    ``TrainStep`` over a model axis build (tests/test_torch_tensor_parallel
-    .py runs them on ranks); what still raises is the dry run's
-    ``abstract_inputs``, naming step 5.  The spec tables, batch specs and
-    the data-parallel step run (tests/test_torch_sharding.py)."""
+    """Every sharded piece runs now: ``ServeStep``, ``make_prefill_fn``
+    and a ``TrainStep`` over a model axis build
+    (tests/test_torch_tensor_parallel.py runs them on ranks), and the dry
+    run's ``abstract_inputs`` return the rank's blocks as meta tensors
+    (tests/test_torch_dryrun.py holds them against the reference's shard
+    shapes).  The name is kept from when they raised.  The spec tables,
+    batch specs and the data-parallel step run
+    (tests/test_torch_sharding.py)."""
     cfg = get_smoke_config(ARCH)
     mesh = {"data": 1, "model": 2}
     assert sharding.TrainStep(cfg, mesh).n_model == 2
     assert sharding.make_prefill_fn(cfg, None).tp is None
     serve = sharding.ServeStep(cfg, mesh, SHAPE)
     assert set(serve.cache_shardings()) == {"k", "v"}
-    for fn in (serve.abstract_inputs,
-               lambda: sharding.TrainStep(cfg, mesh).abstract_inputs(SHAPE)):
-        with pytest.raises(NotImplementedError,
-                           match="queue 1 item 8 \\(sharding\\), step 5"):
-            fn()
+    params, token, cache, pos = serve.abstract_inputs()
+    params2, opt, batch = sharding.TrainStep(cfg, mesh).abstract_inputs(SHAPE)
+    leaves = [*tree_leaves(params), token, *cache.values(), pos,
+              *tree_leaves(params2), opt.step, *tree_leaves(opt.m),
+              *tree_leaves(opt.v), *batch.values()]
+    assert all(t.device.type == "meta" for t in leaves)
+    assert params["layers"]["wq"].shape[-1] * 2 == \
+        M.param_shapes(cfg)["layers"]["wq"][-1]
+    assert pos.shape == () and pos.dtype == torch.int32
+    assert opt.step.shape == () and opt.step.dtype == torch.int32
     assert sharding.batch_axes(None) == ()
     assert sharding.TrainStep(cfg).auto_microbatch(SHAPE) == 1
     assert make_batch_specs(cfg, SHAPE, None, ("data",))["tokens"].spec == \

@@ -461,7 +461,8 @@ TP_TRAIN = ("llama3_2_3b", "stablelm_12b", "h2o_danube3_4b", "olmo_1b",
             "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
 #: one architecture of each family for decode and prefill (hubert has no
 #: decode step)
-TP_SERVE = ("h2o_danube3_4b", "mixtral_8x7b", "phi3_5_moe_e16",
+TP_SERVE = ("h2o_danube3_4b", "h2o_danube3_4b_hd6", "mixtral_8x7b",
+            "phi3_5_moe_e16",
             "falcon_mamba_7b", "zamba2_2_7b", "internvl2_2b")
 #: one architecture of each family, whose ranks' loss, gradient blocks,
 #: prefill and decode logits the tests also hold against the reference's
@@ -499,6 +500,10 @@ def tp_config(arch):
     from repro_torch.configs import get_smoke_config
     if arch == "phi3_5_moe_e16":
         return get_smoke_config("phi3_5_moe").scaled(n_experts=16)
+    if arch == "h2o_danube3_4b_hd6":
+        # 2 kv heads of 6 dims: on model 4 the cache's model axis divides
+        # neither, and the spec fix-up puts it on the sequence
+        return get_smoke_config("h2o_danube3_4b").scaled(head_dim=6)
     return get_smoke_config(arch)
 
 
@@ -723,6 +728,92 @@ def tensor_parallel(rank, p):
         out["production_mesh"] = "built"
     except ValueError as e:
         out["production_mesh"] = str(e)
+    return out
+
+
+#: one smoke config of each family, whose train step, prefill and decode
+#: on (data 2, model 2) tests/test_torch_dryrun.py counts on meta; the
+#: cells' (seq, global batch)
+DRYRUN_ARCHS = ("h2o_danube3_4b", "mixtral_8x7b", "falcon_mamba_7b",
+                "zamba2_2_7b", "hubert_xlarge", "internvl2_2b")
+DRYRUN_SEQ, DRYRUN_BATCH = 64, 8
+
+
+def dryrun_shapes(cfg):
+    from repro_torch.models.config import ShapeSpec
+    kinds = ("train", "prefill") + (() if cfg.is_encoder_only
+                                    else ("decode",))
+    return [ShapeSpec(k, k, DRYRUN_SEQ, DRYRUN_BATCH) for k in kinds]
+
+
+def _batch_rows(cfg, shape, mesh, rng):
+    """This rank's rows of a random batch of ``input_specs``' fields."""
+    import torch
+
+    from repro_torch.models.config import input_specs
+    out = {}
+    for k, spec in input_specs(cfg, shape).items():
+        if spec.dtype == torch.int32:
+            whole = torch.from_numpy(rng.integers(0, cfg.vocab, spec.shape)
+                                     .astype(np.int32))
+        else:
+            whole = torch.from_numpy(rng.standard_normal(spec.shape)).to(
+                spec.dtype)
+        out[k] = whole[_rows(mesh, shape.global_batch)].clone()
+    return out
+
+
+def dryrun_comm(rank, p):
+    """Each DRYRUN_ARCHS smoke config's train step (ZeRO-1), prefill and
+    decode (at the last position) on this rank's real blocks on (data 2,
+    model 2): what its CommStats counted, in all and by kind, and the bytes
+    of its inputs, for the dry run's count of the same rank to equal."""
+    import torch
+
+    from repro_torch.launch.sharding import (ServeStep, TrainStep,
+                                             make_prefill_fn,
+                                             param_shardings)
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import tree_leaves
+
+    mesh = _tp_mesh("d2m2")
+    rng = np.random.default_rng(3)
+    out = {}
+    for arch in DRYRUN_ARCHS:
+        cfg = tp_config(arch)
+        full = M.init_params(cfg, torch.Generator().manual_seed(5),
+                             device="cpu")
+        for shape in dryrun_shapes(cfg):
+            params = _blocks(full, param_shardings(cfg, mesh), mesh)
+            if shape.kind == "train":
+                ts = TrainStep(cfg, mesh)
+                args = (params, ts.adamw_init(params),
+                        _batch_rows(cfg, shape, mesh, rng))
+                ts.step_fn(shape)(*args)
+                stats = ts.stats
+            elif shape.kind == "prefill":
+                args = (params, _batch_rows(cfg, shape, mesh, rng))
+                fn = make_prefill_fn(cfg, mesh)
+                fn(*args)
+                stats = fn.tp.stats
+            else:
+                ss = ServeStep(cfg, mesh, shape)
+                token = torch.from_numpy(rng.integers(
+                    0, cfg.vocab, shape.global_batch))[
+                    _rows(mesh, shape.global_batch)].int()
+                pos = torch.tensor(shape.seq_len - 1, dtype=torch.int32)
+                args = (params, token, ss.init_cache("cpu"), pos)
+                ss.step_fn()(*args)
+                stats = ss.tp.stats
+            leaves = [t for a in args for t in
+                      (tree_leaves(a) if isinstance(a, dict) else
+                       tree_leaves(a.m) + tree_leaves(a.v) + [a.step]
+                       if hasattr(a, "m") else [a])]
+            out[f"{arch}/{shape.kind}_by_rank"] = {
+                "coords": _coords_of(mesh), "bytes": stats.bytes,
+                "per_op": stats.per_op, "counts": stats.counts,
+                "arg_bytes": sum(t.numel() * t.element_size()
+                                 for t in leaves)}
     return out
 
 
