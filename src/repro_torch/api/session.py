@@ -365,8 +365,13 @@ class Session:
 
     # -- execution ----------------------------------------------------------
     def flush(self) -> None:
-        """Run deferred leaf-engine waves (readback does this for you)."""
+        """Run deferred leaf-engine waves (readback does this for you).
+
+        While tracing, the tracer's ``step`` advances once the engine has
+        drained: the spans of the next product carry the next step."""
         self.graph.flush()
+        if self.tracer.enabled:
+            self.tracer.step += 1
 
     @property
     def scheduler(self):
@@ -543,12 +548,13 @@ class Session:
 
         One :class:`~repro_torch.obs.metrics.MetricSet` per active source, all
         in the same ``{name, unit, per_worker[], total}`` schema: the
-        leaf engine's wave counters and, when :meth:`simulate` has run,
+        leaf engine's wave counters, the task graph's size ("graph":
+        ``held_bytes`` and ``nodes``) and, when :meth:`simulate` has run,
         the simulator's per-worker counters
         from the most recent report (identical values to the legacy
         :class:`~repro_torch.runtime.scheduler.SimReport` fields).
         """
-        out = [from_engine_stats(self.engine_stats())]
+        out = [from_engine_stats(self.engine_stats()), self._graph_metrics()]
         if self._last_report is not None:
             out.append(from_sim_report(self._last_report))
         pc = self._plan_cache_metrics()
@@ -558,6 +564,14 @@ class Session:
         if pr is not None:
             out.append(pr)
         return out
+
+    def _graph_metrics(self) -> MetricSet:
+        """The task graph's size: its nodes and the bytes of the chunks
+        they hold (``CTGraph.held_bytes``)."""
+        ms = MetricSet(source="graph")
+        ms.add("held_bytes", "B", [self.graph.held_bytes])
+        ms.add("nodes", "count", [len(self.graph.nodes)])
+        return ms
 
     def _plan_cache_metrics(self) -> Optional[MetricSet]:
         """Plan-cache counters, or None while the cache is untouched.

@@ -476,6 +476,20 @@ class TorchEngine(LeafEngine):
                 "CTGraph; create one engine per graph")
 
     def execute(self, g, node, payload: LeafPayload) -> Optional[MatrixChunk]:
+        # while tracing, each leaf task's pair list and C structure add to
+        # the tracer's engine.* counters (per task: no span), timed on the
+        # tracer's clock, which leaves the collector's passes out
+        tr = g.tracer
+        if not tr.enabled:
+            return self._execute(g, node, payload)
+        t0 = tr.clock()
+        out = self._execute(g, node, payload)
+        tr.add("engine.pairs_s", tr.clock() - t0)
+        tr.add("engine.leaf_tasks")
+        return out
+
+    def _execute(self, g, node, payload: LeafPayload
+                 ) -> Optional[MatrixChunk]:
         self._bind(g)
         av: MatrixChunk = g.value_of(payload.a)
         bv: Optional[MatrixChunk] = (
@@ -526,6 +540,7 @@ class TorchEngine(LeafEngine):
             return MatrixChunk(av.n, leaf=out, upper=False)
 
         pairs, upper = leaf_task_pairs(payload, a_leaf, b_leaf)
+        g.tracer.add("engine.pairs", len(pairs))
         if payload.tau > 0.0:
             # freeze the surviving pairs for Plan replay (see qt_replay):
             # the norm test must not re-evaluate against rebound values
@@ -752,11 +767,29 @@ class TorchEngine(LeafEngine):
             if groups:
                 self._run_wave(groups)   # commits per group (see below)
             progressed = bool(groups)
-            progressed |= self.run_host_ready()
+            progressed |= self._host_fill()
             progressed |= self.run_solve_ready()
             if self._pending and not progressed:
                 raise RuntimeError(
                     "leaf engine deadlock: unresolvable leaf dependencies")
+
+    def _host_fill(self) -> bool:
+        """:meth:`run_host_ready`, inside an ``engine.host_fill`` span
+        (attrs: adds, transposes, scales) when tracing and it runs any."""
+        tr = self.tracer
+        if not tr.enabled:
+            return self.run_host_ready()
+        if not any(t.payload.kind in HOST_KINDS and self._ready(t)
+                   for t in self._pending):
+            return False
+        before = self._pending
+        with tr.span("engine.host_fill", track="engine") as sp:
+            self.run_host_ready()
+            left = {id(t) for t in self._pending}
+            ran = [t.payload.kind for t in before if id(t) not in left]
+            sp.set(adds=ran.count("add"), transposes=ran.count("transpose"),
+                   scales=ran.count("scale"))
+        return True
 
     @staticmethod
     def _run_add(t: _Pending) -> None:
@@ -787,7 +820,18 @@ class TorchEngine(LeafEngine):
     def reexecute(self, g, node, payload: LeafPayload) -> None:
         """Re-defer an already-executed leaf task against its existing
         output chunk; the next flush re-runs the batched waves/host fills
-        in dependency order, writing the same placeholder blocks."""
+        in dependency order, writing the same placeholder blocks.  Counted
+        while tracing as :meth:`execute` is: replay rebuilds the pair
+        lists here."""
+        tr = g.tracer
+        if not tr.enabled:
+            return self._reexecute(g, node, payload)
+        t0 = tr.clock()
+        self._reexecute(g, node, payload)
+        tr.add("engine.pairs_s", tr.clock() - t0)
+        tr.add("engine.leaf_tasks")
+
+    def _reexecute(self, g, node, payload: LeafPayload) -> None:
         self._bind(g)
         av: MatrixChunk = g.value_of(payload.a)
         bv: Optional[MatrixChunk] = (
@@ -806,6 +850,7 @@ class TorchEngine(LeafEngine):
             else:
                 probe = dataclasses.replace(payload, trunc=None)
                 pairs, _ = leaf_task_pairs(probe, a_leaf, b_leaf)
+            g.tracer.add("engine.pairs", len(pairs))
             # zero first: waves only scatter-add into surviving out slots
             for blk in out.leaf.blocks.values():
                 blk[...] = 0.0
@@ -934,63 +979,65 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
     """
     from repro_torch.kernels import ops as kops
 
-    # global output slot numbering: task-by-task, structure order
-    slot_base: list[int] = []
-    n_slots = 0
-    for t in tasks:
-        slot_base.append(n_slots)
-        n_slots += len(t.out.blocks)
+    with tracer.span("engine.gather", track="engine"):
+        # global output slot numbering: task-by-task, structure order
+        slot_base: list[int] = []
+        n_slots = 0
+        for t in tasks:
+            slot_base.append(n_slots)
+            n_slots += len(t.out.blocks)
 
-    # operands are packed *uniquely* — one slot per distinct
-    # (leaf, key, transpose) block — and pairs address them through
-    # sa/sb indices, which is exactly the slot-indexed gather the
-    # bsmm_pairs kernel is built around
-    n_pairs = sum(len(t.pairs) for t in tasks)
-    a_slots: dict[tuple, int] = {}
-    b_slots: dict[tuple, int] = {}
-    a_list: list[np.ndarray] = []
-    b_list: list[np.ndarray] = []
+        # operands are packed *uniquely* — one slot per distinct
+        # (leaf, key, transpose) block — and pairs address them through
+        # sa/sb indices, which is exactly the slot-indexed gather the
+        # bsmm_pairs kernel is built around
+        n_pairs = sum(len(t.pairs) for t in tasks)
+        a_slots: dict[tuple, int] = {}
+        b_slots: dict[tuple, int] = {}
+        a_list: list[np.ndarray] = []
+        b_list: list[np.ndarray] = []
 
-    def slot_of(slots, lst, leaf, key, tr):
-        sk = (id(leaf), key, tr)
-        s = slots.get(sk)
-        if s is None:
-            s = len(lst)
-            slots[sk] = s
-            blk = leaf.blocks[key]
-            lst.append(blk.T if tr else blk)
-        return s
+        def slot_of(slots, lst, leaf, key, tr):
+            sk = (id(leaf), key, tr)
+            s = slots.get(sk)
+            if s is None:
+                s = len(lst)
+                slots[sk] = s
+                blk = leaf.blocks[key]
+                lst.append(blk.T if tr else blk)
+            return s
 
-    sa = np.empty((n_pairs,), np.int32)
-    sb = np.empty((n_pairs,), np.int32)
-    seg = np.empty((n_pairs,), np.int32)
-    p = 0
-    for base, t in zip(slot_base, tasks):
-        key_slot = {key: base + i for i, key in enumerate(t.out.blocks)}
-        srcs = {"a": t.a_leaf, "b": t.b_leaf}
-        for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
-            sa[p] = slot_of(a_slots, a_list, srcs[src_a], ka, tra)
-            sb[p] = slot_of(b_slots, b_list, srcs[src_b], kb, trb)
-            seg[p] = key_slot[out_key]
-            p += 1
-    # C order: stacked transposed views would otherwise keep their layout,
-    # and the kernels take contiguous (P, bs, bs) stacks
-    a_pack = np.stack(a_list).astype(np.float32, order="C")
-    b_pack = np.stack(b_list).astype(np.float32, order="C")
+        sa = np.empty((n_pairs,), np.int32)
+        sb = np.empty((n_pairs,), np.int32)
+        seg = np.empty((n_pairs,), np.int32)
+        p = 0
+        for base, t in zip(slot_base, tasks):
+            key_slot = {key: base + i for i, key in enumerate(t.out.blocks)}
+            srcs = {"a": t.a_leaf, "b": t.b_leaf}
+            for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
+                sa[p] = slot_of(a_slots, a_list, srcs[src_a], ka, tra)
+                sb[p] = slot_of(b_slots, b_list, srcs[src_b], kb, trb)
+                seg[p] = key_slot[out_key]
+                p += 1
+        # C order: stacked transposed views would otherwise keep their layout,
+        # and the kernels take contiguous (P, bs, bs) stacks
+        a_pack = np.stack(a_list).astype(np.float32, order="C")
+        b_pack = np.stack(b_list).astype(np.float32, order="C")
 
-    # ascending segment ids (bsmm_pairs accumulation contract)
-    order = np.argsort(seg, kind="stable")
-    sa, sb, seg = sa[order], sb[order], seg[order]
+        # ascending segment ids (bsmm_pairs accumulation contract)
+        order = np.argsort(seg, kind="stable")
+        sa, sb, seg = sa[order], sb[order], seg[order]
 
     t0 = time.perf_counter()
     with tracer.span("kernel.dispatch", track="engine",
                      kernel=kernel, bs=bs,
                      pairs=int(n_pairs), c_blocks=int(n_slots)):
-        a_dev = _to_device(a_pack, device)
-        b_dev = _to_device(b_pack, device)
-        sa_dev = _to_device(sa, device)
-        sb_dev = _to_device(sb, device)
-        seg_dev = _to_device(seg, device)
+        with tracer.span("copy.h2d", track="engine"):
+            a_dev = _to_device(a_pack, device)
+            b_dev = _to_device(b_pack, device)
+            sa_dev = _to_device(sa, device)
+            sb_dev = _to_device(sb, device)
+            seg_dev = _to_device(seg, device)
         if kernel == "pairs":
             c_dev = kops.bsmm_pairs(a_dev, b_dev, sa_dev, sb_dev, seg_dev,
                                     cap_c=n_slots)
@@ -1005,8 +1052,9 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
                                 device=device)
             c_dev.index_add_(0, seg_dev.long(), prods)
             padded = n_pairs + (-n_pairs) % block_t
-        c = c_dev.cpu().numpy()
-        _sync(device)
+        with tracer.span("copy.d2h", track="engine"):
+            c = c_dev.cpu().numpy()
+            _sync(device)
     wall = time.perf_counter() - t0
 
     record = {
@@ -1016,7 +1064,8 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
         "c_blocks": int(n_slots), "wall_s": wall,
         "bytes_packed": int(a_pack.nbytes + b_pack.nbytes + c.nbytes),
     }
-    for base, t in zip(slot_base, tasks):
-        unpack_blocks(t.out, list(t.out.blocks),
-                      c[base:base + len(t.out.blocks)])
+    with tracer.span("engine.scatter", track="engine"):
+        for base, t in zip(slot_base, tasks):
+            unpack_blocks(t.out, list(t.out.blocks),
+                          c[base:base + len(t.out.blocks)])
     return record

@@ -41,6 +41,37 @@ def _level_of(params: QTParams, n: int) -> int:
     return int(round(math.log2(params.n // n)))
 
 
+#: the engine's registration counters a task program's root span reports
+#: as its own change in them (see TorchEngine.execute)
+_ENGINE_COUNTERS = ("leaf_tasks", "pairs", "pairs_s")
+
+
+def _at_root(g: CTGraph, params: QTParams, *nids) -> bool:
+    """Whether a task program is entered at the root: recursive calls see
+    subtree dimensions below ``params.n``.  Only asked while tracing."""
+    for x in nids:
+        v = g.value_of(x)
+        if v is not None and v.n == params.n:
+            return True
+    return False
+
+
+def _root_span(g: CTGraph, name: str, run, **attrs) -> Optional[int]:
+    """Run a task program's root entry inside a ``name`` span whose
+    attributes are the tasks it registered and the engine's counters it
+    moved; instrumentation only — registration is identical either way."""
+    tr = g.tracer
+    c = tr.counters
+    c0 = [c.get("engine." + k, 0) for k in _ENGINE_COUNTERS]
+    n0 = len(g.nodes)
+    with tr.span(name, track="graph", **attrs) as sp:
+        nid = run()
+        sp.set(tasks=len(g.nodes) - n0, nil=nid is None,
+               **{k: c.get("engine." + k, 0) - v
+                  for k, v in zip(_ENGINE_COUNTERS, c0)})
+    return nid
+
+
 @dataclasses.dataclass
 class TruncationReport:
     """Running record of one error-controlled truncated multiply.
@@ -105,6 +136,14 @@ def _register_create(g: CTGraph, n: int, cids: tuple, upper: bool,
 def qt_add(g: CTGraph, params: QTParams, a: Optional[int], b: Optional[int]
            ) -> Optional[int]:
     """C = A + B (Algorithm 2). Single-NIL cases alias, both-NIL is NIL."""
+    if g.tracer.enabled and _at_root(g, params, a, b):
+        return _root_span(g, "qt.add", lambda: _qt_add(g, params, a, b),
+                          n=params.n)
+    return _qt_add(g, params, a, b)
+
+
+def _qt_add(g: CTGraph, params: QTParams, a: Optional[int],
+            b: Optional[int]) -> Optional[int]:
     if g.is_nil(a):
         return b if not g.is_nil(b) else None
     if g.is_nil(b):
@@ -153,16 +192,11 @@ def qt_multiply(g: CTGraph, params: QTParams, a: Optional[int],
     (pinned by tests/test_truncation.py): no flush, no norm reads, no
     pruning — the strict ``< tau`` test can never fire.
     """
-    # root-entry span (recursive calls see subtree dimensions < params.n);
-    # instrumentation only — registration is identical either way
-    tr = g.tracer
-    if tr.enabled and not g.is_nil(a) and g.value_of(a).n == params.n:
-        n0 = len(g.nodes)
-        with tr.span("qt.multiply", track="graph", n=params.n, tau=tau,
-                     ta=ta, tb=tb) as sp:
-            nid = _qt_multiply(g, params, a, b, ta, tb, tau, trunc)
-            sp.set(tasks=len(g.nodes) - n0, nil=nid is None)
-        return nid
+    if g.tracer.enabled and _at_root(g, params, a):
+        return _root_span(
+            g, "qt.multiply",
+            lambda: _qt_multiply(g, params, a, b, ta, tb, tau, trunc),
+            n=params.n, tau=tau, ta=ta, tb=tb)
     return _qt_multiply(g, params, a, b, ta, tb, tau, trunc)
 
 
@@ -230,6 +264,14 @@ def qt_transpose(g: CTGraph, params: QTParams, a: Optional[int]
     that fill their inputs.  Symmetric upper-storage trees satisfy A = Aᵀ
     and return the same identifier (no task, no new chunk).
     """
+    if g.tracer.enabled and _at_root(g, params, a):
+        return _root_span(g, "qt.transpose",
+                          lambda: _qt_transpose(g, params, a), n=params.n)
+    return _qt_transpose(g, params, a)
+
+
+def _qt_transpose(g: CTGraph, params: QTParams, a: Optional[int]
+                  ) -> Optional[int]:
     if g.is_nil(a):
         return None
     ac: MatrixChunk = g.value_of(a)
@@ -273,6 +315,15 @@ def qt_scale(g: CTGraph, params: QTParams, a: Optional[int], alpha: float
     so deferred backends order it after the waves filling its input.
     Storage flags (symmetric upper) are preserved.
     """
+    if g.tracer.enabled and _at_root(g, params, a):
+        return _root_span(g, "qt.scale",
+                          lambda: _qt_scale(g, params, a, alpha),
+                          n=params.n, alpha=alpha)
+    return _qt_scale(g, params, a, alpha)
+
+
+def _qt_scale(g: CTGraph, params: QTParams, a: Optional[int], alpha: float
+              ) -> Optional[int]:
     if g.is_nil(a) or alpha == 0.0:
         return None
     if alpha == 1.0:
@@ -327,6 +378,14 @@ def qt_replay(g: CTGraph, nids, *, flush: bool = True) -> None:
 def qt_sym_square(g: CTGraph, params: QTParams, a: Optional[int]
                   ) -> Optional[int]:
     """C = A², A symmetric in upper-triangular storage (§3.3)."""
+    if g.tracer.enabled and _at_root(g, params, a):
+        return _root_span(g, "qt.sym_square",
+                          lambda: _qt_sym_square(g, params, a), n=params.n)
+    return _qt_sym_square(g, params, a)
+
+
+def _qt_sym_square(g: CTGraph, params: QTParams, a: Optional[int]
+                   ) -> Optional[int]:
     if g.is_nil(a):
         return None
     ac: MatrixChunk = g.value_of(a)
@@ -361,6 +420,15 @@ def qt_sym_square(g: CTGraph, params: QTParams, a: Optional[int]
 def qt_syrk(g: CTGraph, params: QTParams, a: Optional[int],
             trans: bool = False) -> Optional[int]:
     """C = A Aᵀ (trans=False) or AᵀA (trans=True); C upper storage (§3.3)."""
+    if g.tracer.enabled and _at_root(g, params, a):
+        return _root_span(g, "qt.syrk",
+                          lambda: _qt_syrk(g, params, a, trans),
+                          n=params.n, trans=trans)
+    return _qt_syrk(g, params, a, trans)
+
+
+def _qt_syrk(g: CTGraph, params: QTParams, a: Optional[int],
+             trans: bool = False) -> Optional[int]:
     if g.is_nil(a):
         return None
     ac: MatrixChunk = g.value_of(a)
@@ -402,6 +470,15 @@ def qt_syrk(g: CTGraph, params: QTParams, a: Optional[int],
 def qt_sym_multiply(g: CTGraph, params: QTParams, s: Optional[int],
                     b: Optional[int], side: str = "left") -> Optional[int]:
     """C = S B (side='left') or C = B S (side='right'); S symmetric upper."""
+    if g.tracer.enabled and _at_root(g, params, s):
+        return _root_span(g, "qt.sym_multiply",
+                          lambda: _qt_sym_multiply(g, params, s, b, side),
+                          n=params.n, side=side)
+    return _qt_sym_multiply(g, params, s, b, side)
+
+
+def _qt_sym_multiply(g: CTGraph, params: QTParams, s: Optional[int],
+                     b: Optional[int], side: str = "left") -> Optional[int]:
     if g.is_nil(s) or g.is_nil(b):
         return None
     sc: MatrixChunk = g.value_of(s)

@@ -104,6 +104,10 @@ class CTGraph:
         # observability: a no-op tracer unless Session(trace=...) swaps in
         # a recording one; instrumentation never alters graph structure
         self.tracer = NOOP
+        # bytes of the chunks the nodes hold: the sum of out_nbytes over
+        # the nodes with a value, kept at registration (code that drops a
+        # node's value subtracts its out_nbytes)
+        self.held_bytes = 0
 
     @property
     def engine(self):
@@ -162,6 +166,7 @@ class CTGraph:
         else:
             node.value = res
             node.out_nbytes = _nbytes(res)
+            self.held_bytes += node.out_nbytes
         return nid
 
     def register_chunk(self, kind: str, obj: Any) -> int:

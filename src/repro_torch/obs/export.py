@@ -13,7 +13,9 @@ rows (``"ph": "M"``) naming processes/threads.  Three sources export:
   ``bytes_received`` counter tracks (the Figs 11-13 quantity over time);
 * :func:`span_events` — a recording :class:`~repro_torch.obs.tracer.Tracer`:
   each span track as a thread, spans as slices (nesting renders
-  natively since child slices sit inside their parents' intervals);
+  natively since child slices sit inside their parents' intervals) with
+  their ids, parents and steps, and the tracer's running counters as
+  counter samples;
 * :func:`mesh_stats_events` — a mesh engine :meth:`stats` dict:
   devices as threads, waves as slices laid out on the measured
   cumulative wall clock, with per-device counter tracks for the
@@ -80,9 +82,15 @@ def sim_trace_events(trace, counters: bool = True) -> list[dict]:
 
 
 def span_events(tracer) -> list[dict]:
-    """Trace events of a recording tracer: span tracks as threads."""
+    """Trace events of a recording tracer: span tracks as threads.
+
+    Each slice's args are the span's attributes plus ``span_id``,
+    ``parent_id`` and ``step`` (named so that no attribute is shadowed);
+    each of ``tracer.counters`` becomes one counter sample (``"ph": "C"``)
+    of its running total at the end of the last span."""
     events: list[dict] = _meta(PID_SPANS, "spans (wall time)")
     tids: dict[str, int] = {}
+    t_end = 0.0
     for sp in tracer.ordered():
         tid = tids.get(sp.track)
         if tid is None:
@@ -91,8 +99,13 @@ def span_events(tracer) -> list[dict]:
         events.append({
             "name": sp.name, "ph": "X", "pid": PID_SPANS, "tid": tid,
             "ts": sp.t0 * 1e6, "dur": max(sp.duration, 0.0) * 1e6,
-            "args": dict(sp.attrs),
+            "args": dict(sp.attrs, span_id=sp.id, parent_id=sp.parent,
+                         step=sp.step),
         })
+        t_end = max(t_end, sp.t1)
+    for name, v in sorted(tracer.counters.items()):
+        events.append({"name": name, "ph": "C", "pid": PID_SPANS, "tid": 0,
+                       "ts": t_end * 1e6, "args": {"value": v}})
     return events
 
 

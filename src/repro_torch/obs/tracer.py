@@ -2,39 +2,71 @@
 
 One tracing substrate for the whole stack.  A :class:`Span` is a named,
 timed interval with attributes, a *track* (the Perfetto row it renders
-on) and a nesting depth; the taxonomy threaded through the repo is::
+on), a nesting depth, an ``id`` (its open order), the ``parent`` id of
+the span open around it and a ``step`` (the product it belongs to).  The
+taxonomy threaded through the port, by layer::
 
     session.simulate                 api/session.py   one simulator phase
     plan.compile / plan.run          api/plan.py      lowering vs (re)execution
       plan.rebind / plan.replay     api/plan.py      run sub-phases
-    qt.multiply / qt.from_dense ...  core/multiply.py, core/quadtree.py
+    qt.multiply, qt.sym_square,      core/multiply.py a task program's root
+      qt.syrk, qt.sym_multiply,                       entry (attrs: tasks,
+      qt.add, qt.transpose, qt.scale                  leaf_tasks, pairs,
+                                                      pairs_s)
+    qt.from_dense / qt.from_coo      core/quadtree.py construction
     engine.flush                     core/tasks.py    deferred-wave drain
       engine.wave                   core/engine.py   one cross-leaf batch
+        engine.gather               core/engine.py   slots, stacks, sort
         kernel.dispatch             core/engine.py   the fused kernel call
+          copy.h2d                 core/engine.py   pin, enqueue operands
+          copy.d2h                 core/engine.py   C to the host, sync
+        engine.scatter              core/engine.py   C's blocks to leaves
         collective.ppermute         launch/mesh_exec ring-shift shipments
+      engine.host_fill              core/engine.py   host adds, transposes
+    gc.collect                       (any depth)      one pass of the collector
+
+``Tracer.counters`` holds running totals beside the spans, for work too
+fine-grained for a span of its own: ``engine.leaf_tasks``,
+``engine.pairs`` and ``engine.pairs_s`` (the pair list and C structure
+of each leaf task, host fills' structures included, at registration and
+at replay: ``TorchEngine.execute`` and ``reexecute``, timed on
+:meth:`Tracer.clock`, which leaves the collector out) and
+``gc.collect_s`` (the collector's seconds).  ``Tracer.step`` starts at
+0 and ``Session.flush()`` advances it once the engine has drained, so a
+product's registration spans and its flush share one step.  Every live
+recording tracer also records the interpreter's cyclic collector: one
+``gc.collect`` span per pass (track ``host``), a child of whatever span
+the pass interrupted.
 
 Tracing is **off by default**: every instrumented call site holds a
 :data:`NOOP` tracer whose :meth:`~NoopTracer.span` returns a shared,
 stateless context manager — no allocation beyond the argument dict, no
-timing calls, no growth.  The no-op path changes *nothing* observable
-(task graph, schedule, counters); ``Session(trace=True)`` or
-``Session.tracing()`` swaps in a recording :class:`Tracer`.
+timing calls, no growth — and whose :meth:`~NoopTracer.add` does nothing.
+The collector hook is installed when the first :class:`Tracer` is made,
+never in a process that only holds :data:`NOOP`.  The no-op path changes
+*nothing* observable (task graph, schedule, counters); ``Session(trace=
+True)`` or ``Session.tracing()`` swaps in a recording :class:`Tracer`.
 
-Design constraints (enforced by tests/test_obs.py and
-benchmarks/bench_profile_overhead.py):
+Design constraints (held by tests/test_torch_obs.py and
+tests/test_torch_runtime.py):
 
 * spans are **coarse** — per plan run, per simulator phase, per engine
-  wave; never per task — so the recording overhead stays < 3% on a
+  wave, per task program's root; never per task (per-task work goes to
+  counters) — so the recording overhead stays small on a
   registration-bound workload;
 * instrumentation is purely additive: it never touches RNG state,
   registration order, or chunk contents;
-* span records are plain data (name, t0, t1, track, depth, attrs) so
-  exporters (:mod:`repro_torch.obs.export`) need no back-references.
+* span records are plain data (name, t0, t1, track, depth, attrs, id,
+  parent, step) so exporters (:mod:`repro_torch.obs.export`) need no
+  back-references.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
+import types
+import weakref
 from typing import Optional
 
 __all__ = ["Span", "Tracer", "NoopTracer", "NOOP"]
@@ -42,13 +74,20 @@ __all__ = ["Span", "Tracer", "NoopTracer", "NOOP"]
 
 @dataclasses.dataclass
 class Span:
-    """One closed span: a timed interval on a track, with attributes."""
+    """One closed span: a timed interval on a track, with attributes.
+
+    ``id`` is the span's open order in its tracer (-1 for a span built by
+    hand), ``parent`` the id of the span open around it (None at top
+    level) and ``step`` the tracer's step when it opened."""
     name: str
     t0: float               # seconds since the tracer's epoch
     t1: float
     track: str = "main"
     depth: int = 0          # nesting depth at open time (0 = top level)
     attrs: dict = dataclasses.field(default_factory=dict)
+    id: int = -1
+    parent: Optional[int] = None
+    step: int = 0
 
     @property
     def duration(self) -> float:
@@ -57,13 +96,15 @@ class Span:
     def to_dict(self) -> dict:
         return {"name": self.name, "t0": self.t0, "t1": self.t1,
                 "track": self.track, "depth": self.depth,
-                "attrs": dict(self.attrs)}
+                "attrs": dict(self.attrs), "id": self.id,
+                "parent": self.parent, "step": self.step}
 
 
 class _LiveSpan:
     """An open span (the ``with tracer.span(...)`` handle)."""
 
-    __slots__ = ("_tr", "name", "track", "attrs", "_t0", "_depth")
+    __slots__ = ("_tr", "name", "track", "attrs", "_t0", "_depth", "_id",
+                 "_parent", "_step")
 
     def __init__(self, tr: "Tracer", name: str, track: str, attrs: dict):
         self._tr = tr
@@ -77,8 +118,10 @@ class _LiveSpan:
         return self
 
     def __enter__(self) -> "_LiveSpan":
-        self._depth = len(self._tr._stack)
-        self._tr._stack.append(self)
+        tr = self._tr
+        self._depth, self._parent, self._id = tr._open()
+        self._step = tr.step
+        tr._stack.append(self)
         self._t0 = time.perf_counter()
         return self
 
@@ -88,8 +131,30 @@ class _LiveSpan:
         tr._stack.pop()
         tr.spans.append(Span(self.name, self._t0 - tr.epoch,
                              t1 - tr.epoch, self.track, self._depth,
-                             self.attrs))
+                             self.attrs, self._id, self._parent,
+                             self._step))
         return False
+
+
+#: live recording tracers, each of which records the collector's passes
+_RECORDING: "weakref.WeakSet[Tracer]" = weakref.WeakSet()
+
+
+def _gc_hook(phase: str, info: dict) -> None:
+    """``gc.callbacks`` entry: one ``gc.collect`` span per collector pass
+    in every live recording tracer."""
+    t = time.perf_counter()
+    for tr in list(_RECORDING):
+        if phase == "start":
+            tr._gc_open = (tr._open(), tr.step, t)
+        elif tr._gc_open is not None:
+            (depth, parent, sid), step, t0 = tr._gc_open
+            tr._gc_open = None
+            tr.spans.append(Span("gc.collect", t0 - tr.epoch, t - tr.epoch,
+                                 "host", depth,
+                                 {"generation": info["generation"]},
+                                 sid, parent, step))
+            tr.add("gc.collect_s", t - t0)
 
 
 class Tracer:
@@ -100,12 +165,14 @@ class Tracer:
     ...     with tr.span("engine.wave", track="engine"):
     ...         pass
     ...     sp.set(tasks=42)
-    >>> [s.name for s in tr.spans]
+    >>> [s.name for s in tr.spans if s.name != "gc.collect"]
     ['engine.wave', 'plan.run']
 
     Spans close inner-first; :meth:`ordered` returns them sorted by start
     time (the order exporters want).  ``epoch`` is the perf_counter value
     at construction, so all ``t0``/``t1`` are small relative offsets.
+    ``counters`` holds running totals (:meth:`add`); ``step`` is the
+    current product's id.
     """
 
     enabled = True
@@ -113,7 +180,21 @@ class Tracer:
     def __init__(self):
         self.spans: list[Span] = []
         self._stack: list[_LiveSpan] = []
+        self.counters: dict = {}
+        self.step = 0
+        self._next_id = 0
+        self._gc_open = None
         self.epoch = time.perf_counter()
+        if _gc_hook not in gc.callbacks:
+            gc.callbacks.append(_gc_hook)
+        _RECORDING.add(self)
+
+    def _open(self) -> tuple:
+        """(depth, parent id, id) of a span opening now."""
+        sid = self._next_id
+        self._next_id += 1
+        st = self._stack
+        return len(st), (st[-1]._id if st else None), sid
 
     def span(self, name: str, track: str = "main", **attrs) -> _LiveSpan:
         """Open a nested span; use as a context manager."""
@@ -122,7 +203,20 @@ class Tracer:
     def instant(self, name: str, track: str = "main", **attrs) -> None:
         """Record a zero-duration marker (Perfetto instant event)."""
         t = time.perf_counter() - self.epoch
-        self.spans.append(Span(name, t, t, track, len(self._stack), attrs))
+        depth, parent, sid = self._open()
+        self.spans.append(Span(name, t, t, track, depth, attrs, sid, parent,
+                               self.step))
+
+    def add(self, name: str, v=1) -> None:
+        """Add ``v`` to the running total ``counters[name]``."""
+        c = self.counters
+        c[name] = c.get(name, 0) + v
+
+    def clock(self) -> float:
+        """``time.perf_counter()`` less the collector's seconds so far
+        (``counters["gc.collect_s"]``): an interval on this clock leaves
+        out the collector's passes, which ``gc.collect`` spans hold."""
+        return time.perf_counter() - self.counters.get("gc.collect_s", 0.0)
 
     def ordered(self) -> list[Span]:
         """Spans sorted by start time (stable for equal starts)."""
@@ -137,7 +231,9 @@ class Tracer:
         return sum(s.duration for s in self.spans if s.name == name)
 
     def clear(self) -> None:
+        """Forget the recorded spans and counters."""
         self.spans.clear()
+        self.counters.clear()
 
     def __len__(self) -> int:
         return len(self.spans)
@@ -164,17 +260,22 @@ _NOOP_SPAN = _NoopSpan()
 class NoopTracer:
     """The default tracer: every operation is a near-zero-cost no-op.
 
-    ``spans`` is an empty tuple (shared, immutable) so reporting code can
-    treat both tracer kinds uniformly.
+    ``spans`` is an empty tuple and ``counters`` an empty read-only
+    mapping (shared, immutable) so reporting code can treat both tracer
+    kinds uniformly.
     """
 
     enabled = False
     spans: tuple = ()
+    counters = types.MappingProxyType({})
 
     def span(self, name: str, track: str = "main", **attrs) -> _NoopSpan:
         return _NOOP_SPAN
 
     def instant(self, name: str, track: str = "main", **attrs) -> None:
+        pass
+
+    def add(self, name: str, v=1) -> None:
         pass
 
     def ordered(self) -> list:

@@ -424,6 +424,19 @@ class TestExport:
         slices = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
         assert {"qt.multiply", "engine.wave", "kernel.dispatch",
                 "session.simulate"} <= slices
+        # each slice carries its span's id, parent and step
+        ids = {sp.id: sp for sp in sess.tracer.spans}
+        for e in doc["traceEvents"]:
+            if e["ph"] == "X":
+                sp = ids[e["args"]["span_id"]]
+                assert (e["name"], e["args"]["parent_id"],
+                        e["args"]["step"]) == (sp.name, sp.parent, sp.step)
+        # the running counters, one sample each
+        counters = {e["name"]: e["args"]["value"]
+                    for e in doc["traceEvents"] if e["ph"] == "C"}
+        assert counters == sess.tracer.counters
+        assert counters["engine.pairs"] == \
+            sess.engine_stats()["batched_pairs"]
         both = chrome_trace(span_events(sess.tracer),
                             sim_trace_events(sess._last_report.trace))
         self._assert_monotone(both)

@@ -279,7 +279,8 @@ class TestCacheAccounting:
         sess = Session(engine="numpy", leaf_n=LEAF, bs=BS)
         a = sess.from_dense(np.eye(32))
         (a @ a).to_dense()
-        assert [m.source for m in sess.metrics()] == ["engine:numpy"]
+        assert [m.source for m in sess.metrics()] == ["engine:numpy",
+                                                      "graph"]
 
     @pytest.mark.parametrize("engine", ENGINES)
     def test_recompiled_successors_register_in_shared_cache(self, engine):

@@ -230,8 +230,8 @@ class TestFacadeContract:
                                    leaf_n=16, bs=4)
         a = sess.from_dense(np.eye(32))
         (a @ a).to_dense()
-        (ms,) = sess.metrics()
-        assert ms.source == "engine:torch"
+        ms, graph = sess.metrics()
+        assert ms.source == "engine:torch" and graph.source == "graph"
 
 
 def test_port_imports_neither_jax_nor_repro():
