@@ -63,7 +63,7 @@ class Matrix:
     """Handle to a quadtree matrix registered in a session's task graph."""
 
     __slots__ = ("session", "node", "params", "_t", "upper", "_trunc",
-                 "_expr", "name", "_prog")
+                 "_expr", "name", "_prog", "__weakref__")
 
     def __init__(self, session, node: Optional[int], params: QTParams,
                  t: bool = False, upper: bool = False,
@@ -78,6 +78,7 @@ class Matrix:
         self._expr = expr           # pending Expr (lazy mode) or None
         self.name = name            # plan input-slot name (rebinding)
         self._prog = None           # eager producing-program nid range (free)
+        session._handles.add(self)  # Session.free keeps what it reads
 
     # -- construction (delegates to the session) ----------------------------
     @classmethod

@@ -38,6 +38,7 @@ need::
 from __future__ import annotations
 
 import contextlib
+import weakref
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
@@ -50,7 +51,8 @@ from repro_torch.obs.metrics import MetricSet, from_engine_stats, from_sim_repor
 from repro_torch.obs.tracer import Tracer, as_tracer
 from repro_torch.runtime.scheduler import PLACEMENTS
 
-from .expr import (Expr, Transpose, expr_upper, fingerprint, rewrite)
+from .expr import (Expr, Transpose, expr_inputs, expr_upper, fingerprint,
+                   rewrite)
 from .lru import LRUCache
 from .matrix import Matrix
 from .plan import Plan, lower
@@ -181,6 +183,11 @@ class Session:
         self._structfp: dict[Optional[int], str] = {}
         # input root node id -> user-chosen plan slot name
         self._input_names: dict[int, str] = {}
+        # every live Matrix handle and compiled Plan of this session, the
+        # evicted plans a caller still holds included: free leaves the
+        # chunks they read
+        self._handles: weakref.WeakSet = weakref.WeakSet()
+        self._live_plans: weakref.WeakSet = weakref.WeakSet()
         # most recent SimReport (feeds Session.metrics)
         self._last_report = None
 
@@ -338,6 +345,7 @@ class Session:
             plan.out_t = t
             plan.out_upper = upper
             self._plans.put(key, plan)
+            self._live_plans.add(plan)
             for observer in list(self._plan_observers):
                 observer(plan)
         return plan, slot_nids
@@ -434,59 +442,121 @@ class Session:
         self.scheduler.reset_stats()
 
     def free(self, matrix: Matrix) -> int:
-        """Release a consumed matrix's chunks from the simulated store.
+        """Release a consumed matrix's chunks: its host values and its
+        placements in the simulated store.
 
-        Long iterative runs otherwise leak every intermediate into the
-        :class:`~repro_torch.core.chunks.ChunkStore` (owned-bytes accounting
-        grows without bound).  Frees every chunk this session's scheduler
-        placed for (a) the matrix's quadtree and (b) the task program
-        that produced it — the consumed multiply/add partials that are
-        not part of the result tree — and drops their placement entries;
-        returns the number of owned bytes released.  With ``dedup=True``
-        frees are reference counted — content shared with a live
-        registration survives.  Without dedup, substructure shared
-        through identifier-copy aliasing (e.g. an add with a NIL operand
-        returns the other operand's chunks) is freed too, so only free
-        matrices whose values you no longer read.  Compiled plans manage
-        their own program chunks (:meth:`Plan.simulate` frees and
-        re-places them per replay); :meth:`free` is for eager loops and
-        consumed inputs.
+        Long iterative runs otherwise keep every intermediate, both in the
+        task graph on the host and in the
+        :class:`~repro_torch.core.chunks.ChunkStore`.  The freed nodes are
+        the matrix's quadtree and the task program that produced it (the
+        consumed multiply/add partials that are not part of the result
+        tree).  The engine's :meth:`~repro_torch.core.engine.LeafEngine.
+        free_chunks` hook runs first; then the scheduler frees every chunk
+        it placed for them and drops their placement entries; then the
+        graph lets go of their host chunks
+        (:meth:`~repro_torch.core.tasks.CTGraph.drop_values`), so the
+        nodes keep their ids, kinds and counts but read as NIL.  Returns
+        the number of owned bytes released from the simulated store.
+
+        The freed matrix must not be read again.  Whatever else can
+        still be read keeps its host chunks (the simulator releases the
+        placements of every freed node, as before):
+
+        * every tree another live :class:`Matrix` handle reads, a pending
+          lazy expression's inputs included: another handle on the same
+          tree (its ``.T``) keeps all of it;
+        * nodes older than the matrix's own program: an add with a NIL
+          quadrant shares its operand's subtrees, which stay the
+          operand's;
+        * every node a compiled :class:`Plan` owns: its program and its
+          bound input trees (a replay reads and rewrites them in place);
+        * transposes materialised through the session-wide cache, whose
+          placements are kept as well;
+        * with ``dedup=True``, the nodes the simulator has not run yet:
+          their content decides its dedup hits.  A dedup'd chunk that
+          another registration shares stays in the store, which holds its
+          own reference.
+
+        A freed node still produced its chunk: a later :meth:`simulate`
+        places a stand-in of the same size
+        (:meth:`~repro_torch.core.tasks.CTGraph.placed`), so the report
+        is the one the loop gives without :meth:`free`.  While tracing,
+        the chunks and bytes let go of add to the counters
+        ``graph.freed_chunks`` and ``graph.freed_bytes``.
         """
         if not isinstance(matrix, Matrix):
             raise TypeError(f"free: expected a Matrix, got {type(matrix)!r}")
         if matrix._expr is not None:
             return 0                    # never materialised: nothing placed
         from .plan import _subtree_nids
-        targets = set(_subtree_nids(self.graph, matrix.node))
+        g = self.graph
+        targets = set(_subtree_nids(g, matrix.node))
         targets.update(matrix._prog or ())
         # materialised transposes are shared session-wide through
         # _transpose_cache (an eager program that registered one may not
         # be its only consumer): keep their chunks and placements
         for tnid in self._transpose_cache.values():
             if tnid is not None:
-                targets.difference_update(
-                    _subtree_nids(self.graph, tnid))
-        # engine hook *before* the scheduler early-return: an engine that
-        # keeps device-resident state for these leaves (MeshEngine, the
-        # mesh executor) must drop it even when nothing was ever
-        # simulated.  TorchEngine copies every wave's result back to the
-        # host and keeps no device buffer, so its hook is the no-op base
-        if self.graph._engine is not None:
-            self.graph._engine.free_chunks(self.graph, targets)
+                targets.difference_update(_subtree_nids(g, tnid))
+        # engine hook *before* the scheduler: an engine that keeps
+        # device-resident state for these leaves (MeshEngine, the mesh
+        # executor) must drop it even when nothing was ever simulated.
+        # TorchEngine copies every wave's result back to the host and
+        # keeps no device buffer, so its hook is the no-op base
+        if g._engine is not None:
+            g._engine.free_chunks(g, targets)
+        released = 0
         sched = self._sched
-        if sched is None or sched.store is None:
-            return 0
-        before = sum(s.owned_bytes for s in sched.store.stats)
-        sched.release(self.graph, targets)
-        # alias entries (identifier copies) pointing into the freed
-        # chunks.  This scans the full placement map — an identity test,
-        # deliberately not a chunk-id test, so dedup-shared cids owned by
-        # other live matrices keep their entries; O(placements) per free
-        # is fine for the simulator's bookkeeping.
-        for k in [k for k, _ in list(sched.placement.items())
-                  if self.graph.resolve(k) in targets]:
-            sched.placement.pop(k, None)
-        return before - sum(s.owned_bytes for s in sched.store.stats)
+        if sched is not None and sched.store is not None:
+            before = sum(s.owned_bytes for s in sched.store.stats)
+            sched.release(g, targets)
+            # alias entries (identifier copies) pointing into the freed
+            # chunks.  This scans the full placement map — an identity
+            # test, deliberately not a chunk-id test, so dedup-shared cids
+            # owned by other live matrices keep their entries;
+            # O(placements) per free is fine for the simulator's
+            # bookkeeping.
+            for k in [k for k, _ in list(sched.placement.items())
+                      if g.resolve(k) in targets]:
+                sched.placement.pop(k, None)
+            released = before - sum(s.owned_bytes
+                                    for s in sched.store.stats)
+        lo = matrix._prog.start if matrix._prog is not None else 0
+        drop = {nid for nid in targets if nid >= lo}
+        drop -= self._read_elsewhere(matrix, lo)
+        if self.dedup:
+            drop = sched.simulated(drop) if sched is not None else set()
+        chunks, nbytes = g.drop_values(drop)
+        self.tracer.add("graph.freed_chunks", chunks)
+        self.tracer.add("graph.freed_bytes", nbytes)
+        return released
+
+    def _read_elsewhere(self, matrix: Matrix, lo: int) -> set:
+        """Nodes from ``lo`` on that something other than ``matrix`` still
+        reads: the trees of the session's other live handles and of the
+        inputs of pending lazy expressions, and each compiled plan's
+        program and bound input trees.  A tree is whole once its
+        registration returns, so one rooted before ``lo`` holds no node
+        from ``lo`` on and is not walked."""
+        from .plan import _subtree_nids
+        keep: set = set()
+        roots: set = set()
+        for h in list(self._handles):
+            if h is matrix:
+                continue
+            if h._expr is None:
+                roots.add(h.node)
+            else:
+                roots.update(x.nid for x in expr_inputs(h._expr))
+        for plan in list(self._live_plans):
+            roots.update(plan.input_nids)
+            if plan.nodes is not None:
+                keep.update(range(max(lo, plan.nodes.start),
+                                  plan.nodes.stop))
+        for nid in roots:
+            if nid is not None and nid >= lo:
+                keep.update(_subtree_nids(self.graph, nid))
+        return keep
 
     # -- reporting ----------------------------------------------------------
     def task_counts(self) -> dict[str, int]:
@@ -549,8 +619,8 @@ class Session:
         One :class:`~repro_torch.obs.metrics.MetricSet` per active source, all
         in the same ``{name, unit, per_worker[], total}`` schema: the
         leaf engine's wave counters, the task graph's size ("graph":
-        ``held_bytes`` and ``nodes``) and, when :meth:`simulate` has run,
-        the simulator's per-worker counters
+        ``held_bytes``, ``freed_bytes`` and ``nodes``) and, when
+        :meth:`simulate` has run, the simulator's per-worker counters
         from the most recent report (identical values to the legacy
         :class:`~repro_torch.runtime.scheduler.SimReport` fields).
         """
@@ -566,10 +636,12 @@ class Session:
         return out
 
     def _graph_metrics(self) -> MetricSet:
-        """The task graph's size: its nodes and the bytes of the chunks
-        they hold (``CTGraph.held_bytes``)."""
+        """The task graph's size: its nodes, the bytes of the chunks
+        they hold (``CTGraph.held_bytes``) and the bytes :meth:`free` has
+        let go of (``CTGraph.freed_bytes``, cumulative)."""
         ms = MetricSet(source="graph")
         ms.add("held_bytes", "B", [self.graph.held_bytes])
+        ms.add("freed_bytes", "B", [self.graph.freed_bytes])
         ms.add("nodes", "count", [len(self.graph.nodes)])
         return ms
 
@@ -614,7 +686,6 @@ class Session:
 
 
 def _first_input_n(e: Expr) -> int:
-    from .expr import expr_inputs
     inputs = expr_inputs(e)
     if not inputs:
         raise ValueError("compile: expression has no inputs")

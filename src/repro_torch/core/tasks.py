@@ -72,6 +72,14 @@ class Node:
     # surviving block-pair list of a truncated leaf multiply, whose
     # norm test would otherwise re-evaluate against the rebound values
     replay: Any = None
+    # the chunk was let go of (CTGraph.drop_values): value reads as NIL,
+    # but the task still produced it, so a later simulation places it
+    freed: bool = False
+
+
+#: what the simulator places for a chunk let go of before it ran the task
+#: (CTGraph.placed): its size is the node's out_nbytes
+FREED = object()
 
 
 @dataclasses.dataclass
@@ -105,9 +113,11 @@ class CTGraph:
         # a recording one; instrumentation never alters graph structure
         self.tracer = NOOP
         # bytes of the chunks the nodes hold: the sum of out_nbytes over
-        # the nodes with a value, kept at registration (code that drops a
-        # node's value subtracts its out_nbytes)
+        # the nodes with a value, added at registration and subtracted by
+        # drop_values, the one code that drops a node's value
         self.held_bytes = 0
+        # bytes drop_values has let go of, over the graph's life
+        self.freed_bytes = 0
 
     @property
     def engine(self):
@@ -168,6 +178,38 @@ class CTGraph:
             node.out_nbytes = _nbytes(res)
             self.held_bytes += node.out_nbytes
         return nid
+
+    def drop_values(self, nids) -> tuple[int, int]:
+        """Let go of these nodes' chunks (``Session.free``).
+
+        Each node keeps its id, kind, payload, deps, out_nbytes and flops,
+        so task counts and the wave records stay as they were; its value
+        reads as NIL from now on, and :meth:`placed` still gives the
+        simulator a chunk of the same size.  An alias node holds a
+        reference to its producer's chunk and lets go of it too, but the
+        bytes are the producer's.  Returns ``(chunks, bytes)`` let go of.
+        """
+        chunks = nbytes = 0
+        for nid in nids:
+            node = self.nodes[nid]
+            if node.value is None:
+                continue
+            if node.alias_of is None:
+                chunks += 1
+                nbytes += node.out_nbytes
+                node.freed = True
+            node.value = None
+        self.held_bytes -= nbytes
+        self.freed_bytes += nbytes
+        return chunks, nbytes
+
+    def placed(self, node: Node) -> Any:
+        """The chunk the simulator places for ``node``: its value, the
+        :data:`FREED` stand-in for one :meth:`drop_values` let go of, or
+        None (NIL)."""
+        if node.value is None and node.freed:
+            return FREED
+        return node.value
 
     def register_chunk(self, kind: str, obj: Any) -> int:
         """A task that only materialises a chunk (zero-cost source node)."""

@@ -226,7 +226,7 @@ class RecoveryManager:
         # placement entry (fetches resolve through the producer anyway)
         producers = {nid for nid in lost
                      if g.nodes[nid].alias_of is None
-                     and g.nodes[nid].value is not None}
+                     and g.placed(g.nodes[nid]) is not None}
         recompute: set = set()
         if self.policy == "replication":
             # 1) re-point lost placements at a surviving replica

@@ -333,7 +333,7 @@ class Scheduler:
             cid = self.placement.pop(nid, None)
             node = g.nodes[nid]
             if cid is not None and node.alias_of is None \
-                    and node.value is not None:
+                    and g.placed(node) is not None:
                 self.store.free(cid)
             for rcid in self.recovery.drop_replicas(nid):
                 self.store.free(rcid)
@@ -342,6 +342,10 @@ class Scheduler:
         """Whether any of these nodes has already been executed on the
         virtual cluster (public accessor for Plan.simulate)."""
         return any(nid in self._owner_of_node for nid in nids)
+
+    def simulated(self, nids) -> set:
+        """Those of these nodes already executed on the virtual cluster."""
+        return {nid for nid in nids if nid in self._owner_of_node}
 
     def unsimulated_closure(self, g: CTGraph, nids) -> set:
         """Not-yet-simulated nodes needed to simulate ``nids``.
@@ -658,7 +662,8 @@ class Scheduler:
             # produce + place the output chunk
             push_time = 0.0
             pushed_bytes = 0
-            if node.alias_of is None and node.value is not None:
+            chunk = g.placed(node)
+            if node.alias_of is None and chunk is not None:
                 owner = _place(self.placement_policy, w, self._chunk_counter,
                                self.n_workers, self.rng)
                 self._chunk_counter += 1
@@ -666,7 +671,7 @@ class Scheduler:
                 # charge ship time only for bytes the store actually moved:
                 # a dedup hit resolves to an existing chunk id, no transfer
                 pushed_before = self.store.stats[owner].bytes_pushed
-                cid = self.store.register_pushed(w, owner, node.value,
+                cid = self.store.register_pushed(w, owner, chunk,
                                                  node.out_nbytes)
                 self.placement[nid] = cid
                 shipped = self.store.stats[owner].bytes_pushed - pushed_before

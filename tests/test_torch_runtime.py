@@ -379,6 +379,38 @@ def test_free_releases_store_bytes_and_calls_the_engine_hook_first(
         owned - freed
 
 
+@pytest.mark.parametrize("dedup", [False, True])
+@pytest.mark.parametrize("pattern", ["banded", "s2"])
+def test_an_eager_loop_that_frees_simulates_as_the_reference(pattern, dedup):
+    """Products freed before any simulation, between two and after one
+    (the first twice), with a worker killed in the last: each report
+    equals the reference's, whose ``free`` keeps every host value.  The
+    port lets go of the freed values, and the simulator still places and
+    charges their chunks."""
+    reps = []
+    for pkg in PACKAGES:
+        rec = __import__(f"{pkg.__name__}.runtime.recovery",
+                         fromlist=["x"])
+        sess, op = _build(pkg, pattern, p=4, seed=3, dedup=dedup)
+        first = op()
+        sess.free(first)
+        out = [sess.simulate(fresh_stats=True)]
+        c, d = op(), op()
+        sess.free(c)
+        out.append(sess.simulate(fresh_stats=True))
+        sess.free(d)
+        sess.free(first)            # now simulated: releases its chunks
+        sess.free(op())
+        out.append(sess.simulate(fresh_stats=True, faults=rec.FaultSchedule(
+            events=[rec.kill(0.5 * out[-1].makespan, 2)],
+            recovery="lineage")))
+        reps.append(out)
+    want, got = reps
+    for g, w in zip(got, want):
+        assert_same_report(g, w)
+    assert got[-1].tasks_recomputed > 0
+
+
 class TestExport:
     """``repro_torch.obs.export`` (the Perfetto export) against the
     reference's ``repro.obs.export``."""
