@@ -12,7 +12,13 @@ per-layer metric by adding files and entries, never by editing one:
 * ``operators/<product>.py`` -- the operator each product calls:
   ``OPERANDS`` (the operands' names), ``call(mats) -> Matrix`` and
   ``reference_operands(blocks) -> (left, right)``, the reference's
-  factors;
+  factors.  Where the product leaves out some of the factors' block
+  pairs (a truncated multiply), it also defines ``reference_pairs(blocks,
+  cfg, ia, ib) -> keep``: a boolean mask over the structural pairs
+  (indices into the left and right factors' blocks) of those the
+  product multiplies.  The reference then multiplies those alone; C's
+  structure, |A| |B| and the work counted (``mfu``, the rooflines) are
+  those of the pairs kept.  Without it every structural pair counts;
 * ``mixes/<traffic>.json``   -- the traffic's parameters; its ``driver``
   names
 * ``drivers/<driver>.py``    -- the code that issues products:
@@ -22,7 +28,11 @@ per-layer metric by adding files and entries, never by editing one:
   ``warm()``, ``issue(n) -> (result, value sets)`` and
   ``release(result)`` (see :class:`pbench.cell.Context`);
 * ``metrics/<metric>.py``    -- one per-layer metric: ``read(run)``
-  returns its number, or None where the run holds nothing to read.
+  returns its number, or None where the run holds nothing to read
+  (:class:`pbench.main.Run`; with ``--trace 1`` ``run.program`` holds
+  the program's spans and counters, read through
+  :func:`pbench.spans.program_self` and
+  :func:`~pbench.spans.program_counter`).
 
 Every path is under the benchmark's folder (this file's parent's parent).
 """

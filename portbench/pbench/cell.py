@@ -152,6 +152,7 @@ def _rank_body(rank, world, spec, torch, device, group) -> dict:
     stats0 = engine.stats() if cfg["engine"] == "mesh" else None
     window = Window(torch) if spec["trace"] and cuda else \
         contextlib.nullcontext()
+    counters0 = dict(getattr(tracer, "counters", None) or {})
     rss0 = _rss()
     ru0 = resource.getrusage(resource.RUSAGE_SELF)
     gc_log = _GcLog()
@@ -210,6 +211,8 @@ def _rank_body(rank, world, spec, torch, device, group) -> dict:
                 for s in tracer.spans if s.name == sp.DISPATCH]
         res["spans"] = own
         res["trace"] = getattr(window, "trace", None)
+        res["program"] = program_records(tracer, sess, counters0,
+                                         (t_first, t_last))
     if group is not None:
         torch.distributed.barrier()
     if rank == 0:
@@ -219,6 +222,30 @@ def _rank_body(rank, world, spec, torch, device, group) -> dict:
     if group is not None:
         torch.distributed.barrier()
     return res
+
+
+def program_records(tracer, sess, counters0, window) -> dict:
+    """What the program recorded, for the per-layer metrics
+    (:func:`pbench.spans.program_self`, :func:`~pbench.spans.
+    program_counter`): every span of its tracer that carries an ``id``
+    (set-up's too) as ``(name, t0, t1, id, parent, attrs)`` on the
+    harness's clock, its counters' change over the window, the bytes its
+    graph holds when the window has closed, and the window.  Read by
+    ``getattr``: what the program does not keep is None."""
+    epoch = getattr(tracer, "epoch", None)
+    spans = None
+    if epoch is not None:
+        spans = [(s.name, s.t0 + epoch, s.t1 + epoch, s.id,
+                  getattr(s, "parent", None), dict(getattr(s, "attrs", {})))
+                 for s in getattr(tracer, "spans", ())
+                 if getattr(s, "id", None) is not None]
+    counters = getattr(tracer, "counters", None)
+    if counters is not None:
+        counters = {k: v - counters0.get(k, 0) for k, v in counters.items()}
+    return {"spans": spans, "counters": counters,
+            "held_bytes": getattr(getattr(sess, "graph", None),
+                                  "held_bytes", None),
+            "window": window}
 
 
 class _GcLog:
@@ -267,21 +294,33 @@ def check(cfg, op, pattern, seed, kept, device) -> dict:
     for i, (m, sets) in sorted(kept.items(), key=lambda kv: kv[0]):
         key = tuple(sorted(sets.items()))
         if key not in refs:
-            a, b = op.reference_operands({s: blocks_of(k)
-                                          for s, k in sets.items()})
-            refs[key] = (reference.reference_product(a, b, pattern.upper,
-                                                     device=device), a, b)
+            refs[key] = reference_of(cfg, op, pattern.upper, device,
+                                     {s: blocks_of(k)
+                                      for s, k in sets.items()})
         got = reference.compare(stored_blocks(m), refs[key][0])
         failed += any(got[k] > limits[k] for k in got)
         for k in worst:
             worst[k] = max(worst[k], got[k])
     ref, a, b = next(iter(refs.values()))
-    ia, ib, _, _ = reference.block_pairs(a.keys, b.keys, pattern.upper)
-    work = product_work(a.keys, b.keys, ia, ib, len(ref.keys), bs,
+    work = product_work(a.keys, b.keys, ref.ia, ref.ib, len(ref.keys), bs,
                         symmetric=pattern.upper)
     return {"checks": {k: {"value": v, "limit": limits[k]}
                        for k, v in worst.items()},
             "checked": sorted(kept), "failed": failed, "work": work}
+
+
+def reference_of(cfg, op, upper, device, blocks, precision="float64"):
+    """The operator's reference product of the operands' ``blocks``, and
+    its two factors: every structural pair, or those that the operator's
+    ``reference_pairs`` keeps, where it has one."""
+    a, b = op.reference_operands(blocks)
+    keep = None
+    if hasattr(op, "reference_pairs"):
+        def keep(ia, ib):
+            return op.reference_pairs(blocks, cfg, ia, ib)
+    return (reference.reference_product(a, b, upper, device=device,
+                                        precision=precision, keep=keep),
+            a, b)
 
 
 def spawn_ranks(world: int, spec: dict) -> list:

@@ -66,16 +66,23 @@ def run(root: pathlib.Path, name: str, seed: int, seconds: float,
     return assemble(b, cell, ranks, trace, t_start, device)
 
 
-def assemble(b: dict, cell: dict, ranks: list, trace: bool,
-             t_start: float, device: str) -> dict:
+def record(ranks: list) -> "Run":
+    """What the per-layer metrics read, from the ranks' results."""
     r0 = ranks[0]
-    products = r0["products"]
-    product_s = r0["window_s"] / products
-    run_ = Run(products=products, product_s=product_s, chips=len(ranks),
+    return Run(products=r0["products"],
+               product_s=r0["window_s"] / r0["products"], chips=len(ranks),
                work=r0["work"], spans=r0.get("spans", []),
                traces=[r["trace"] for r in ranks if r.get("trace")],
                build_s=[r["build_s"] for r in ranks],
-               counters=[r["counters"] for r in ranks if "counters" in r])
+               counters=[r["counters"] for r in ranks if "counters" in r],
+               program=r0.get("program"))
+
+
+def assemble(b: dict, cell: dict, ranks: list, trace: bool,
+             t_start: float, device: str) -> dict:
+    r0 = ranks[0]
+    run_ = record(ranks)
+    products, product_s = run_.products, run_.product_s
     metrics = {}
     if trace:
         for m in bench.metrics_of(b, cell, "per_layer"):
@@ -116,9 +123,11 @@ class Run:
     product's, :class:`pbench.work.Work`), ``spans`` (rank 0's host spans,
     :mod:`pbench.spans`), ``build_s`` (each rank's mean seconds to build
     an input in set-up), ``traces`` (each rank's
-    :class:`pbench.devtrace.DeviceTrace`; empty without a device trace)
-    and ``counters`` (each rank's mesh counters over the window, bytes;
-    empty without a mesh engine)."""
+    :class:`pbench.devtrace.DeviceTrace`; empty without a device trace),
+    ``counters`` (each rank's mesh counters over the window, bytes;
+    empty without a mesh engine) and ``program`` (rank 0's records of the
+    program, :func:`pbench.cell.program_records`; None without
+    ``--trace 1``)."""
 
     def __init__(self, **kw):
         self.__dict__.update(kw)

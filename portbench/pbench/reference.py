@@ -6,7 +6,10 @@ C = A B over ``bs x bs`` blocks, every pair (I, K) x (K, J) of nonzero
 blocks, and for a symmetric product only the blocks with I <= J (the
 program's upper storage).  Beside C it keeps |A| |B|, the scale of each
 element's rounding error, so that an element's error reads against what
-the float32 sums it came from can hold.  It imports nothing of the
+the float32 sums it came from can hold.  A product that leaves out some
+of those pairs (a truncated multiply) says which it keeps through its
+operator's ``reference_pairs`` (:mod:`pbench.bench`); C's structure and
+|A| |B| are then those of the pairs kept.  It imports nothing of the
 program and uses plain PyTorch: on the card in blocks of pairs, on the
 host the same code.
 """
@@ -69,21 +72,34 @@ def block_pairs(a_keys: np.ndarray, b_keys: np.ndarray, upper: bool):
 @dataclasses.dataclass
 class Product:
     """The reference's C: keys, values and |A| |B| (float64, on
-    ``device``), and the structural pair count."""
+    ``device``), the pairs it multiplied (indices into A's and B's
+    blocks) and their count."""
     keys: np.ndarray
     c: torch.Tensor
     scale: torch.Tensor
     pairs: int
+    ia: np.ndarray
+    ib: np.ndarray
 
 
 def reference_product(a: BlockMatrix, b: BlockMatrix, upper: bool,
-                      device="cpu", precision: str = "float64") -> Product:
+                      device="cpu", precision: str = "float64",
+                      keep=None) -> Product:
     """C = A B in float64 (``precision="float64"``), ``"float32"``, or, as
     the control, in TF32: the operands rounded to TF32 (what the tensor
     cores do to them), their products summed in float32.  The rounding is
     explicit: cuBLAS is free to run a float32 product of 32 x 32 blocks
-    without the tensor cores even where TF32 is allowed."""
+    without the tensor cores even where TF32 is allowed.
+
+    ``keep(ia, ib)``, where given, is a boolean mask over the structural
+    pairs: only the pairs it keeps are multiplied, and C holds the blocks
+    that a kept pair adds to."""
     ia, ib, ic, keys = block_pairs(a.keys, b.keys, upper)
+    if keep is not None:
+        m = np.asarray(keep(ia, ib), bool)
+        ia, ib = ia[m], ib[m]
+        used, ic = np.unique(ic[m], return_inverse=True)
+        keys = keys[used]
     dtype = torch.float64 if precision == "float64" else torch.float32
     da = torch.from_numpy(a.blocks).to(device, dtype)
     db = torch.from_numpy(b.blocks).to(device, dtype)
@@ -105,7 +121,7 @@ def reference_product(a: BlockMatrix, b: BlockMatrix, upper: bool,
                 scale.index_add_(0, seg, torch.bmm(xa.abs(), xb.abs()))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-    return Product(keys, c, scale, len(ia))
+    return Product(keys, c, scale, len(ia), ia, ib)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:

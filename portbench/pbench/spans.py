@@ -6,6 +6,13 @@ product: ``register`` (the operator call), ``rebind`` (``Plan.run``
 without a flush), ``flush`` (``Session.flush``) and ``free``
 (``Session.free``); the program adds ``kernel.dispatch`` inside a flush
 (its copies, its kernel and a synchronize).
+
+A traced run also hands the metrics the program's own records
+(``run.program``, :func:`pbench.cell.program_records`): its spans as
+``(name, t0, t1, id, parent, attrs)``, each the child of the span whose
+``id`` is its ``parent``, and its counters' change over the window.
+:func:`program_self` and :func:`program_counter` read them, and give
+None where the run holds no such record.
 """
 from __future__ import annotations
 
@@ -82,3 +89,36 @@ def label_gap(spans: list, a: float, b: float, steps: int = 16) -> str:
         lab = label_at(spans, a + (b - a) * (i + 0.5) / steps)
         votes[lab] = votes.get(lab, 0) + 1
     return max(votes, key=votes.get)
+
+
+def program_spans(run) -> list | None:
+    """The program's spans that started inside the measured window, each
+    with its self time: ``(name, self_s, attrs, id, parent)``, where the
+    self time is the span's seconds less those of its children (a
+    collector pass that interrupted it included).  None without
+    records."""
+    prog = getattr(run, "program", None)
+    if not prog or prog.get("spans") is None:
+        return None
+    child: dict = {}
+    for _, a, b, _, parent, _ in prog["spans"]:
+        if parent is not None:
+            child[parent] = child.get(parent, 0.0) + (b - a)
+    w0 = prog["window"][0]
+    return [(name, (b - a) - child.get(sid, 0.0), attrs, sid, parent)
+            for name, a, b, sid, parent, attrs in prog["spans"] if a >= w0]
+
+
+def program_self(run, name: str) -> float | None:
+    """Seconds per product of self time in the program's ``name`` spans
+    of the window; None where there is none."""
+    spans = program_spans(run)
+    got = [t for n, t, *_ in spans or () if n == name]
+    return sum(got) / run.products if got else None
+
+
+def program_counter(run, name: str) -> float | None:
+    """The change of the program's counter ``name`` over the window;
+    None where the program keeps no such counter."""
+    prog = getattr(run, "program", None)
+    return ((prog and prog.get("counters")) or {}).get(name)

@@ -73,3 +73,24 @@ def no_exchange():
     cdist.ring_shift = lambda group, sends: [torch.zeros_like(x)
                                              for x, _ in sends]
     mesh_exec.cdist = cdist
+
+
+def _patch_tau(change):
+    """Every truncated multiply of the program run at ``change(tau)``."""
+    from repro_torch.api.matrix import Matrix
+    orig = Matrix.multiply
+
+    def multiply(self, other, tau=None):
+        tau = self.session.tau if tau is None else tau
+        return orig(self, other, tau=change(float(tau)))
+    Matrix.multiply = multiply
+
+
+def tau_zero():
+    """A truncated multiply that truncates nothing."""
+    _patch_tau(lambda tau: 0.0)
+
+
+def tau_times_ten():
+    """A truncated multiply that drops ten times too much."""
+    _patch_tau(lambda tau: 10.0 * tau)

@@ -114,3 +114,52 @@ def test_every_kernel_runs_inside_a_dispatch_span(tiny_root, cuda, cell):
            for a, b in kernels]
     assert max(out) <= 1e-3, (max(out), sum(x > 0 for x in out),
                               len(out))
+
+
+def _fixed_record():
+    """Two products' program records: set-up's two constructions, two
+    registrations (one with a nested root span and a collector pass), a
+    flush and a rebind."""
+    sp = [("qt.from_coo", 1.0, 1.5, 0, None, {}),
+          ("qt.from_coo", 2.0, 3.0, 1, None, {}),
+          ("qt.multiply", 10.0, 11.0, 2, None, {"pairs_s": 0.4}),
+          ("gc.collect", 10.5, 10.6, 3, 2, {"generation": 0}),
+          ("qt.sym_square", 12.0, 13.0, 4, None, {"pairs_s": 0.5}),
+          ("qt.multiply", 12.2, 12.6, 5, 4, {"pairs_s": 0.2}),
+          ("engine.flush", 14.0, 16.0, 6, None, {}),
+          ("engine.wave", 14.2, 15.2, 7, 6, {}),
+          ("engine.gather", 14.2, 14.5, 8, 7, {}),
+          ("kernel.dispatch", 14.5, 14.9, 9, 7, {}),
+          ("copy.h2d", 14.5, 14.6, 10, 9, {}),
+          ("copy.d2h", 14.7, 14.9, 11, 9, {}),
+          ("engine.scatter", 14.9, 15.1, 12, 7, {}),
+          ("engine.host_fill", 15.3, 15.8, 13, 6, {}),
+          ("gc.collect", 15.4, 15.5, 14, 13, {"generation": 1}),
+          ("plan.run", 16.9, 17.5, 15, None, {}),
+          ("plan.rebind", 17.0, 17.3, 16, 15, {})]
+    return {"spans": sp, "window": (10.0, 20.0),
+            "counters": {"engine.pairs_s": 0.9, "gc.collect_s": 0.2},
+            "held_bytes": 5e6}
+
+
+def test_program_readings_of_a_fixed_record():
+    """The twelve readings of the program's records, each by hand."""
+    run = Run(products=2, program=_fixed_record())
+    want = {"from_coo_s": 0.75,
+            # (0.9 - 0.4) + (0.6 - (0.5 - 0.2)) + (0.4 - 0.2) s
+            "recurse_ms": 500.0, "pairs_ms": 450.0,
+            "plan_rebind_ms": 150.0,
+            # engine.flush's self 0.5 s and engine.wave's 0.1 s
+            "schedule_ms": 300.0, "gather_ms": 150.0, "scatter_ms": 100.0,
+            # less the collector's pass inside it
+            "host_fill_ms": 200.0, "h2d_ms": 50.0, "d2h_ms": 100.0,
+            "gc_ms": 100.0, "held_mb": 5.0}
+    got = {m: bench.load_metric(bench.HERE, m).read(run) for m in want}
+    assert got == pytest.approx(want)
+    assert spans.program_self(run, "engine.gather") == pytest.approx(0.15)
+    assert spans.program_counter(run, "gc.collect_s") == 0.2
+    assert spans.program_counter(run, "engine.pairs") is None
+    # a run without the program's records reads nothing
+    bare = Run(products=2, program=None)
+    assert {m: bench.load_metric(bench.HERE, m).read(bare)
+            for m in want} == dict.fromkeys(want)

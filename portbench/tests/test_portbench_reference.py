@@ -82,33 +82,74 @@ def test_compare_finds_wrong_missing_and_extra_blocks():
     assert R.compare(nan, p)["max_rel_err"] == 1e30
 
 
+def _operands(pat, op, bs, seed, dtype=np.float64):
+    """Each operand of ``op`` as its value set of the pattern (as the
+    drivers number them), in blocks."""
+    out = {}
+    for k, s in enumerate(op.OPERANDS):
+        v = pat.values(seed, k)(pat.rows, pat.cols)
+        m = R.block_matrix(pat.rows, pat.cols, v, pat.n, bs)
+        out[s] = R.BlockMatrix(m.keys, m.blocks.astype(dtype), bs)
+    return out
+
+
 def test_float32_passes_and_tf32_control_fails_the_limit(tiny_root):
     """The control: the reference in TF32 in the program's place must fail
-    the limit that a float32 product meets, on every configuration."""
+    the limit that a float32 product meets, on every configuration (each
+    through its operator's reference)."""
     from pbench import bench
+    from pbench.cell import reference_of
     b = bench.load_benchmark(tiny_root)
     for entry in b["configs"]:
         cfg = bench.load_config(tiny_root, b, entry["name"])
         pat = bench.load_pattern(BENCH, cfg).make(cfg)
+        op = bench.load_operator(BENCH, cfg)
         bs = cfg["bs"]
         for seed in (1, 2, 3):
-            va = pat.values(seed, 0)(pat.rows, pat.cols)
-            a = R.block_matrix(pat.rows, pat.cols, va, pat.n, bs)
-            bb = a if pat.upper else R.block_matrix(
-                pat.rows, pat.cols, pat.values(seed, 1)(pat.rows, pat.cols),
-                pat.n, bs)
-            want = R.reference_product(a, bb, pat.upper)
-            f32 = R.BlockMatrix(a.keys, a.blocks.astype(np.float32), bs)
-            g32 = R.BlockMatrix(bb.keys, bb.blocks.astype(np.float32), bs)
-            got32 = R.reference_product(f32, g32, pat.upper,
-                                        precision="float32")
-            ctl = R.reference_product(a, bb, pat.upper, precision="tf32")
+            want = reference_of(cfg, op, pat.upper, "cpu",
+                                _operands(pat, op, bs, seed))[0]
+            got32 = reference_of(cfg, op, pat.upper, "cpu",
+                                 _operands(pat, op, bs, seed, np.float32),
+                                 precision="float32")[0]
+            ctl = reference_of(cfg, op, pat.upper, "cpu",
+                               _operands(pat, op, bs, seed),
+                               precision="tf32")[0]
             lim = cfg["limits"]["max_rel_err"]
             r32 = R.compare(R.as_blocks(got32), want)
             rtf = R.compare(R.as_blocks(ctl), want)
             assert r32["c_blocks_wrong"] == rtf["c_blocks_wrong"] == 0
             assert r32["max_rel_err"] <= lim < rtf["max_rel_err"], (
                 entry["name"], seed, r32, rtf)
+
+
+def test_operators_without_a_hook_multiply_every_structural_pair(
+        tiny_root):
+    """An operator with no ``reference_pairs`` gets the exact product over
+    every structural pair, and the work counted from the pairs the
+    reference multiplied is that of every structural pair: what the
+    harness read before operators could define their products."""
+    from pbench import bench
+    from pbench.cell import reference_of
+    from pbench.work import product_work
+    b = bench.load_benchmark(tiny_root)
+    for entry in b["configs"]:
+        cfg = bench.load_config(tiny_root, b, entry["name"])
+        pat = bench.load_pattern(BENCH, cfg).make(cfg)
+        op = bench.load_operator(BENCH, cfg)
+        assert not hasattr(op, "reference_pairs")
+        bs = cfg["bs"]
+        blocks = _operands(pat, op, bs, 7)
+        got, a, bb = reference_of(cfg, op, pat.upper, "cpu", blocks)
+        want = R.reference_product(*op.reference_operands(blocks), pat.upper)
+        ia, ib, _, keys = R.block_pairs(a.keys, bb.keys, pat.upper)
+        np.testing.assert_array_equal(got.keys, keys)
+        np.testing.assert_array_equal(got.ia, ia)
+        np.testing.assert_array_equal(got.ib, ib)
+        assert bool((got.c == want.c).all())
+        assert bool((got.scale == want.scale).all())
+        assert product_work(a.keys, bb.keys, got.ia, got.ib, len(got.keys),
+                            bs, pat.upper) == product_work(
+            a.keys, bb.keys, ia, ib, len(keys), bs, pat.upper)
 
 
 def test_tf32_round_keeps_ten_mantissa_bits():

@@ -119,6 +119,16 @@ def test_new_config_mix_and_metric_are_found_as_new_files(tiny_root):
         "from pbench import spans\n"
         "def read(run):\n"
         "    return spans.total(run.spans, 'rebuild') / run.products * 1e3\n")
+    # a metric that reads the program's records: microseconds of scatter
+    # self time per block pair the engine built
+    (bench / "metrics" / "scatter_us_per_pair_test.py").write_text(
+        "from pbench import spans\n"
+        "def read(run):\n"
+        "    t = spans.program_self(run, 'engine.scatter')\n"
+        "    n = spans.program_counter(run, 'engine.pairs')\n"
+        "    if t is None or not n:\n"
+        "        return None\n"
+        "    return t * run.products / n * 1e6\n")
     b = json.loads((tiny_root / "BENCHMARK.json").read_text())
     b["configs"].append({"name": "diagonal_test", "source": "a test",
                          "file": "portbench/configs/diagonal_test.json",
@@ -131,18 +141,34 @@ def test_new_config_mix_and_metric_are_found_as_new_files(tiny_root):
                            "better": "lower", "source": "host_clock",
                            "layer": "test", "moves": "product_s",
                            "workloads": ["diagonal_test.rebuild_three"]})
+    b["per_layer"].append({"name": "scatter_us_per_pair_test", "unit": "us",
+                           "better": "lower", "source": "program_span",
+                           "layer": "test", "moves": "product_s",
+                           "workloads": ["diagonal_test.rebuild_three"]})
     (tiny_root / "BENCHMARK.json").write_text(json.dumps(b))
     before = {p: p.read_bytes() for p in tiny_root.rglob("*") if p.is_file()}
     out = in_copy(tiny_root, "import json\n"
+                  "from pbench import bench, cell\n"
                   "out = main.run(pathlib.Path('.'), "
-                  "'diagonal_test.rebuild_three', 5, 0.3, True, time.time(),"
+                  "'diagonal_test.rebuild_three', 5, 0.6, True, time.time(),"
                   " device='cpu')\n"
                   "print(json.dumps({k: out[k] for k in ('correct', "
-                  "'attempted', 'metrics', 'checks')}))\n")
-    line = json.loads(out.splitlines()[-1])
+                  "'attempted', 'metrics', 'checks')}))\n"
+                  "b = bench.load_benchmark(pathlib.Path('.'))\n"
+                  "spec = {'cfg': bench.load_config(pathlib.Path('.'), b, "
+                  "'diagonal_test'), 'mix': bench.load_mix(bench.HERE, "
+                  "'rebuild_three'), 'seed': 5, 'seconds': 0.3, 'trace': "
+                  "False, 'device': 'cpu', 'backend': 'gloo', 'plant': None}\n"
+                  "run_ = main.record([cell.rank_main(0, 1, spec)])\n"
+                  "print(json.dumps(bench.load_metric(bench.HERE, "
+                  "'scatter_us_per_pair_test').read(run_)))\n")
+    line = json.loads(out.splitlines()[-2])
     assert line["correct"] is True and line["attempted"] >= 2
     assert line["checks"]["max_rel_err"]["value"] > 0
     assert line["metrics"]["rebuild_ms_test"]["value"] > 0
+    # with --trace 1 the program's records give a number; without, None
+    assert line["metrics"]["scatter_us_per_pair_test"]["value"] > 0
+    assert json.loads(out.splitlines()[-1]) is None
     assert "register_ms" not in line["metrics"]   # listed for other cells
     assert "pack_ms" in line["metrics"]     # a metric of every cell
     assert {p: p.read_bytes() for p in tiny_root.rglob("*")
