@@ -453,7 +453,8 @@ class Session:
         tree).  The engine's :meth:`~repro_torch.core.engine.LeafEngine.
         free_chunks` hook runs first; then the scheduler frees every chunk
         it placed for them and drops their placement entries; then the
-        graph lets go of their host chunks
+        graph lets go of their host chunks and of the block-pair lists a
+        truncated multiply froze on them
         (:meth:`~repro_torch.core.tasks.CTGraph.drop_values`), so the
         nodes keep their ids, kinds and counts but read as NIL.  Returns
         the number of owned bytes released from the simulated store.

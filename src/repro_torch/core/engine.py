@@ -186,13 +186,18 @@ def _full_items(leaf: LeafMatrix):
 
 
 def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
-                    b_leaf: Optional[LeafMatrix]):
+                    b_leaf: Optional[LeafMatrix], tracer=NOOP):
     """All surviving block GEMMs of one leaf task.
 
     Returns ``(pairs, upper_out)`` where each pair is
     ``(src_a, key_a, trans_a, src_b, key_b, trans_b, out_key)`` with src in
     {'a', 'b'} naming which operand leaf the stored block comes from.  The
     pair count equals the numpy backend's LeafStats.block_multiplies.
+
+    A recording ``tracer`` counts a truncated multiply's norm test: the
+    pairs it drops (``trunc.pairs_pruned``) and its seconds on
+    :meth:`~repro_torch.obs.tracer.Tracer.clock`, from the first norm
+    lookup to the kept list (``trunc.test_s``).
     """
     k = payload.kind
     if k == "multiply":
@@ -250,6 +255,7 @@ def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
         # norm is valid for either orientation.
         srcs = {"a": a_leaf, "b": b_leaf}
         flops_each = 2.0 * a_leaf.bs ** 3
+        t0 = tracer.clock() if tracer.enabled else 0.0
         kept = []
         for pr in pairs:
             sa, ka, _, sb, kb, _, _ = pr[:7]
@@ -260,6 +266,9 @@ def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
                     payload.trunc.record_leaf_pair(bound, flops_each)
             else:
                 kept.append(pr)
+        if tracer.enabled:
+            tracer.add("trunc.test_s", tracer.clock() - t0)
+            tracer.add("trunc.pairs_pruned", len(pairs) - len(kept))
         pairs = kept
     return pairs, upper
 
@@ -314,7 +323,8 @@ class NumpyEngine(LeafEngine):
             # The pair list is frozen on the node so a Plan replay re-runs
             # the same program instead of re-pruning against new norms.
             if node.replay is None:
-                node.replay = leaf_task_pairs(payload, av.leaf, bv.leaf)
+                node.replay = leaf_task_pairs(payload, av.leaf, bv.leaf,
+                                              g.tracer)
             pairs, upper = node.replay
             res = execute_pairs_host(av.leaf, bv.leaf, pairs, upper, st)
         elif k == "multiply":
@@ -539,7 +549,7 @@ class TorchEngine(LeafEngine):
             self._defer(_Pending(node.nid, payload, out, a_leaf, b_leaf))
             return MatrixChunk(av.n, leaf=out, upper=False)
 
-        pairs, upper = leaf_task_pairs(payload, a_leaf, b_leaf)
+        pairs, upper = leaf_task_pairs(payload, a_leaf, b_leaf, g.tracer)
         g.tracer.add("engine.pairs", len(pairs))
         if payload.tau > 0.0:
             # freeze the surviving pairs for Plan replay (see qt_replay):

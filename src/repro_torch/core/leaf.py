@@ -126,13 +126,17 @@ class LeafMatrix:
 
         The cache is what makes SpAMM-style pruning cheap: the truncated
         multiply queries every candidate block pair, but each block is
-        reduced once.
+        reduced once.  The squares of a float32 block are summed in
+        float64, so a pair's ``sqrt(na * nb) < tau`` test is exact to
+        float64 rounding of the stored values, not float32's.
         """
         if self._bnorm2 is None:
             self._bnorm2 = {}
         v = self._bnorm2.get(key)
         if v is None:
             blk = self.blocks[key]
+            if blk.dtype != np.float64:
+                blk = blk.astype(np.float64)
             v = float((blk * blk).sum())
             self._bnorm2[key] = v
         return v

@@ -56,10 +56,12 @@ def _at_root(g: CTGraph, params: QTParams, *nids) -> bool:
     return False
 
 
-def _root_span(g: CTGraph, name: str, run, **attrs) -> Optional[int]:
+def _root_span(g: CTGraph, name: str, run, done=None,
+               **attrs) -> Optional[int]:
     """Run a task program's root entry inside a ``name`` span whose
     attributes are the tasks it registered and the engine's counters it
-    moved; instrumentation only — registration is identical either way."""
+    moved, and ``done()``'s, where given; instrumentation only —
+    registration is identical either way."""
     tr = g.tracer
     c = tr.counters
     c0 = [c.get("engine." + k, 0) for k in _ENGINE_COUNTERS]
@@ -69,6 +71,8 @@ def _root_span(g: CTGraph, name: str, run, **attrs) -> Optional[int]:
         sp.set(tasks=len(g.nodes) - n0, nil=nid is None,
                **{k: c.get("engine." + k, 0) - v
                   for k, v in zip(_ENGINE_COUNTERS, c0)})
+        if done is not None:
+            sp.set(**done())
     return nid
 
 
@@ -193,10 +197,18 @@ def qt_multiply(g: CTGraph, params: QTParams, a: Optional[int],
     pruning — the strict ``< tau`` test can never fire.
     """
     if g.tracer.enabled and _at_root(g, params, a):
+        done = None
+        if tau > 0.0 and trunc is not None:
+            # this product's part of a report that may span several
+            e0, p0 = trunc.error_bound, trunc.pruned_leaf_pairs
+
+            def done():
+                return {"error_bound": trunc.error_bound - e0,
+                        "pruned_pairs": trunc.pruned_leaf_pairs - p0}
         return _root_span(
             g, "qt.multiply",
             lambda: _qt_multiply(g, params, a, b, ta, tb, tau, trunc),
-            n=params.n, tau=tau, ta=ta, tb=tb)
+            done, n=params.n, tau=tau, ta=ta, tb=tb)
     return _qt_multiply(g, params, a, b, ta, tb, tau, trunc)
 
 
@@ -220,6 +232,7 @@ def _qt_multiply(g: CTGraph, params: QTParams, a: Optional[int],
         if bound < tau:
             if trunc is not None:
                 trunc.record_subtree(bound, level)
+            g.tracer.add("trunc.subtrees_pruned")
             return None
 
     if ac.is_leaf:

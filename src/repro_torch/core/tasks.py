@@ -70,7 +70,8 @@ class Node:
     # structural decisions frozen at first execution so a Plan replay
     # (api/plan.py) re-runs the *same* program: today this is the
     # surviving block-pair list of a truncated leaf multiply, whose
-    # norm test would otherwise re-evaluate against the rebound values
+    # norm test would otherwise re-evaluate against the rebound values;
+    # CTGraph.drop_values lets go of it with the value
     replay: Any = None
     # the chunk was let go of (CTGraph.drop_values): value reads as NIL,
     # but the task still produced it, so a later simulation places it
@@ -187,11 +188,15 @@ class CTGraph:
         reads as NIL from now on, and :meth:`placed` still gives the
         simulator a chunk of the same size.  An alias node holds a
         reference to its producer's chunk and lets go of it too, but the
-        bytes are the producer's.  Returns ``(chunks, bytes)`` let go of.
+        bytes are the producer's.  The node's frozen replay decisions
+        (``node.replay``: a truncated leaf multiply's kept block pairs) go
+        too, NIL nodes' included: only a plan replays them, and a node a
+        plan owns is never freed.  Returns ``(chunks, bytes)`` let go of.
         """
         chunks = nbytes = 0
         for nid in nids:
             node = self.nodes[nid]
+            node.replay = None
             if node.value is None:
                 continue
             if node.alias_of is None:

@@ -30,8 +30,13 @@ fine-grained for a span of its own: ``engine.leaf_tasks``,
 ``engine.pairs`` and ``engine.pairs_s`` (the pair list and C structure
 of each leaf task, host fills' structures included, at registration and
 at replay: ``TorchEngine.execute`` and ``reexecute``, timed on
-:meth:`Tracer.clock`, which leaves the collector out) and
-``gc.collect_s`` (the collector's seconds).  ``Tracer.step`` starts at
+:meth:`Tracer.clock`, which leaves the collector out), a truncated
+multiply's ``trunc.pairs_pruned`` (block pairs its leaf tasks drop),
+``trunc.subtrees_pruned`` (recursive products it drops, any level) and
+``trunc.test_s`` (its leaf tasks' norm tests, on the same clock), and
+``gc.collect_s`` (the collector's seconds).  A truncated ``qt.multiply``
+root span also carries ``error_bound`` and ``pruned_pairs``, what that
+product pruned.  ``Tracer.step`` starts at
 0 and ``Session.flush()`` advances it once the engine has drained, so a
 product's registration spans and its flush share one step.  Every live
 recording tracer also records the interpreter's cyclic collector: one
