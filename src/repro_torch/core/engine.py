@@ -41,7 +41,9 @@ counts, bytes packed) is recorded in :meth:`TorchEngine.stats`.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+import operator
 import time
 from typing import Any, Optional
 
@@ -970,6 +972,102 @@ def dispatch_solve_wave(tasks: list[_Pending], *, kind: str, n: int,
     }
 
 
+def gather_wave(tasks: list[_Pending]) -> tuple:
+    """Pack one kernel wave: ``(sa, sb, seg, a_pack, b_pack, n_slots)``.
+
+    C's slots are numbered task by task, each task's in ``t.out.blocks``
+    order (``n_slots`` in all).  Operands are packed *uniquely*, one slot
+    per distinct ``(leaf, key, transpose)`` block of each side, numbered
+    by first occurrence in the wave's pair order; pair ``p`` multiplies
+    ``a_pack[sa[p]] @ b_pack[sb[p]]`` into C slot ``seg[p]``, the slot-
+    indexed gather the ``bsmm_pairs`` kernel is built around.  ``seg``
+    comes back ascending (a *stable* sort, so each C block keeps its
+    pairs in task order), ``sa`` and ``sb`` permuted with it, all int32.
+    The packs are C-order float32 ``(U, bs, bs)`` stacks, transposed
+    blocks written transposed, each element rounded once from its leaf.
+
+    Array work over the whole wave, with no Python step a pair: the pair
+    tuples' fields are read in C-level passes, each operand block is coded
+    as one int64 (the wave's leaves numbered by identity, so tasks of
+    several engines share a wave) and numbered by one ``np.unique`` a
+    side, and each pair's output key finds its C slot by a
+    ``searchsorted`` over the tasks' C keys.
+    """
+    bs, grid = tasks[0].out.bs, tasks[0].out.grid   # one batch_key
+    cells = grid * grid
+    key_code = dict(zip(itertools.product(range(grid), repeat=2),
+                        range(cells)))
+    leaf_ix: dict[int, int] = {}
+    leaves: list[LeafMatrix] = []
+    for t in tasks:
+        for leaf in (t.a_leaf, t.b_leaf):
+            if leaf is not None and id(leaf) not in leaf_ix:
+                leaf_ix[id(leaf)] = len(leaves)
+                leaves.append(leaf)
+    # each task's leaf of side 'a' (0) and 'b' (1)
+    task_leaf = np.array([(leaf_ix[id(t.a_leaf)],
+                           -1 if t.b_leaf is None else leaf_ix[id(t.b_leaf)])
+                          for t in tasks], np.int64)
+    lens = [len(t.pairs) for t in tasks]
+    task = np.repeat(np.arange(len(tasks)), lens)
+    pairs = list(itertools.chain.from_iterable(t.pairs for t in tasks))
+    n_pairs = len(pairs)
+
+    def field(k):
+        return map(operator.itemgetter(k), pairs)
+
+    def codes(k):
+        return np.fromiter(map(key_code.__getitem__, field(k)), np.int64,
+                           count=n_pairs)
+
+    def operands(k):
+        """Slots and pack of the side whose (src, key, tr) start at k."""
+        # src is 'a' or 'b': one byte a pair
+        side = np.frombuffer("".join(field(k)).encode(), np.uint8) - ord("a")
+        leaf = task_leaf[task, side]
+        code = (leaf * cells + codes(k + 1)) * 2 \
+            + np.fromiter(field(k + 2), bool, count=n_pairs)
+        _, first, inverse = np.unique(code, return_index=True,
+                                      return_inverse=True)
+        by_first = np.argsort(first)
+        rank = np.empty_like(by_first)
+        rank[by_first] = np.arange(len(by_first))
+        firsts = first[by_first]
+        blocks = []
+        for li, p in zip(leaf[firsts].tolist(), firsts.tolist()):
+            _, key, tr = pairs[p][k:k + 3]
+            blk = leaves[li].blocks[key]
+            blocks.append(blk.T if tr else blk)
+        # into a C-order float32 stack: np.stack alone would follow the
+        # layout of transposed views
+        pack = np.empty((len(blocks), bs, bs), np.float32)
+        return rank[inverse].astype(np.int32), np.stack(blocks, out=pack)
+
+    sa, a_pack = operands(0)
+    sb, b_pack = operands(3)
+
+    # C slots: each task's keys, coded with the task's number
+    out_lens = [len(t.out.blocks) for t in tasks]
+    n_slots = sum(out_lens)
+    c_code = np.fromiter(
+        map(key_code.__getitem__,
+            itertools.chain.from_iterable(t.out.blocks for t in tasks)),
+        np.int64, count=n_slots) \
+        + np.repeat(np.arange(len(tasks)) * cells, out_lens)
+    p_code = codes(6) + task * cells
+    by_code = np.argsort(c_code)
+    seg = by_code[np.minimum(
+        np.searchsorted(c_code, p_code, sorter=by_code), n_slots - 1)]
+    if not np.array_equal(c_code[seg], p_code):
+        raise KeyError("a block pair's output key is not in its task's "
+                       "C structure")
+
+    # ascending segment ids (bsmm_pairs accumulation contract)
+    order = np.argsort(seg, kind="stable")
+    return (sa[order], sb[order], seg[order].astype(np.int32),
+            a_pack, b_pack, n_slots)
+
+
 def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
                          block_t: int, device: torch.device,
                          tracer=NOOP) -> dict:
@@ -989,54 +1087,11 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
     """
     from repro_torch.kernels import ops as kops
 
-    with tracer.span("engine.gather", track="engine"):
-        # global output slot numbering: task-by-task, structure order
-        slot_base: list[int] = []
-        n_slots = 0
-        for t in tasks:
-            slot_base.append(n_slots)
-            n_slots += len(t.out.blocks)
-
-        # operands are packed *uniquely* — one slot per distinct
-        # (leaf, key, transpose) block — and pairs address them through
-        # sa/sb indices, which is exactly the slot-indexed gather the
-        # bsmm_pairs kernel is built around
-        n_pairs = sum(len(t.pairs) for t in tasks)
-        a_slots: dict[tuple, int] = {}
-        b_slots: dict[tuple, int] = {}
-        a_list: list[np.ndarray] = []
-        b_list: list[np.ndarray] = []
-
-        def slot_of(slots, lst, leaf, key, tr):
-            sk = (id(leaf), key, tr)
-            s = slots.get(sk)
-            if s is None:
-                s = len(lst)
-                slots[sk] = s
-                blk = leaf.blocks[key]
-                lst.append(blk.T if tr else blk)
-            return s
-
-        sa = np.empty((n_pairs,), np.int32)
-        sb = np.empty((n_pairs,), np.int32)
-        seg = np.empty((n_pairs,), np.int32)
-        p = 0
-        for base, t in zip(slot_base, tasks):
-            key_slot = {key: base + i for i, key in enumerate(t.out.blocks)}
-            srcs = {"a": t.a_leaf, "b": t.b_leaf}
-            for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
-                sa[p] = slot_of(a_slots, a_list, srcs[src_a], ka, tra)
-                sb[p] = slot_of(b_slots, b_list, srcs[src_b], kb, trb)
-                seg[p] = key_slot[out_key]
-                p += 1
-        # C order: stacked transposed views would otherwise keep their layout,
-        # and the kernels take contiguous (P, bs, bs) stacks
-        a_pack = np.stack(a_list).astype(np.float32, order="C")
-        b_pack = np.stack(b_list).astype(np.float32, order="C")
-
-        # ascending segment ids (bsmm_pairs accumulation contract)
-        order = np.argsort(seg, kind="stable")
-        sa, sb, seg = sa[order], sb[order], seg[order]
+    with tracer.span("engine.gather", track="engine") as sp:
+        sa, sb, seg, a_pack, b_pack, n_slots = gather_wave(tasks)
+        n_pairs = len(seg)
+        unique_blocks = len(a_pack) + len(b_pack)
+        sp.set(pairs=n_pairs, unique_blocks=unique_blocks)
 
     t0 = time.perf_counter()
     with tracer.span("kernel.dispatch", track="engine",
@@ -1070,12 +1125,14 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
     record = {
         "kernel": kernel, "bs": bs, "tasks": len(tasks),
         "pairs": int(n_pairs), "padded_pairs": int(padded),
-        "unique_blocks": len(a_list) + len(b_list),
+        "unique_blocks": unique_blocks,
         "c_blocks": int(n_slots), "wall_s": wall,
         "bytes_packed": int(a_pack.nbytes + b_pack.nbytes + c.nbytes),
     }
     with tracer.span("engine.scatter", track="engine"):
-        for base, t in zip(slot_base, tasks):
-            unpack_blocks(t.out, list(t.out.blocks),
-                          c[base:base + len(t.out.blocks)])
+        base = 0
+        for t in tasks:
+            keys = list(t.out.blocks)
+            unpack_blocks(t.out, keys, c[base:base + len(keys)])
+            base += len(keys)
     return record

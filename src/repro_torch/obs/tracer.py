@@ -17,6 +17,8 @@ taxonomy threaded through the port, by layer::
     engine.flush                     core/tasks.py    deferred-wave drain
       engine.wave                   core/engine.py   one cross-leaf batch
         engine.gather               core/engine.py   slots, stacks, sort
+                                                      (attrs: pairs,
+                                                      unique_blocks)
         kernel.dispatch             core/engine.py   the fused kernel call
           copy.h2d                 core/engine.py   pin, enqueue operands
           copy.d2h                 core/engine.py   C to the host, sync

@@ -160,6 +160,22 @@ def test_engine_pairs_counter_equals_batched_pairs(kind):
     assert tr.counters["engine.pairs_s"] > before.get("engine.pairs_s", 0)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_gather_span_counts_pairs_and_unique_blocks(kind):
+    """Each ``engine.gather`` span carries its wave's pairs and unique
+    operand blocks, as the wave record has them: their ratio is the
+    operand reuse the slot numbering finds."""
+    p = _Products(kind, trace=True)
+    p.run(2)
+    spans = p.sess.tracer.find("engine.gather")
+    waves = p.sess.engine_stats()["wave_log"]
+    assert len(spans) == len(waves) > 0
+    for sp, w in zip(spans, waves):
+        assert sp.attrs["pairs"] == w["pairs"] > 0
+        assert sp.attrs["unique_blocks"] == w["unique_blocks"]
+        assert 2 <= w["unique_blocks"] <= 2 * w["pairs"]
+
+
 @pytest.mark.parametrize("kind", ["banded", "overlap"])
 def test_root_span_reports_the_counters_it_moved(kind):
     p = _Products(kind, trace=True)
