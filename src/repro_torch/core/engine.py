@@ -13,15 +13,14 @@ rendering of that pluggable leaf engine:
   sym_square/sym_multiply tasks are *not* executed at registration: their
   output **structure** is computed up front (the same occupancy
   :func:`repro_torch.core.bsmm.compute_c_structure` gives on the leaf
-  masks — the create-from-ids tree collapsed to one boolean matmul) and
-  zero placeholder blocks are allocated, while the numeric work is
-  deferred.  At flush time the engine harvests *all* pending leaf tasks
-  across the whole quadtree, packs every surviving block pair of every leaf
-  into one ``(P, bs, bs)`` operand stream, copies it to the card and makes
-  **one kernel launch per wave** — the hand-written CUDA
-  ``kernels.bsmm_pairs`` (gather-GEMM-scatter) or ``kernels.batched_gemm``
-  followed by an on-device scatter-add.  This lifts the paper's Fig 2
-  outer-product batching from per-leaf to per-graph: cross-leaf batching.
+  masks) and zero placeholder blocks are allocated, while the numeric
+  work is deferred.  At flush the ready leaf tasks of the whole quadtree
+  form one wave: :func:`number_wave`, the wave planner of every executor
+  (the mesh's ``launch.mesh_exec.plan_wave`` included), numbers its pairs,
+  operand blocks and C slots, and :func:`gather_wave` packs them for **one
+  kernel launch** — the CUDA ``kernels.bsmm_pairs`` (gather-GEMM-scatter)
+  or ``kernels.batched_gemm`` and an on-device scatter-add: the paper's
+  Fig 2 outer-product batching, lifted from per-leaf to per-graph.
 
 Correctness of deferral rests on a structural fact both backends share: the
 *occupancy* of every leaf result is determined by the operand masks alone
@@ -59,6 +58,9 @@ from repro_torch.obs.tracer import NOOP
 
 #: leaf-payload kinds executed host-side (no kernel wave)
 HOST_KINDS = ("add", "transpose", "scale")
+
+#: the reference's batched_gemm batch tile (the CUDA kernel does not pad)
+GEMM_BATCH_TILE = 8
 
 #: leaf-payload kinds dispatched through the batched triangular kernels
 #: (kernels/tri.py) — their own wave family, never mixed into GEMM waves
@@ -442,9 +444,6 @@ class TorchEngine(LeafEngine):
     device   : None -> the CUDA device (raises if there is none; nothing
                falls back on its own); 'cpu' runs the kernels' plain
                PyTorch versions, which is how the tests run without a card.
-    block_t  : batch tile of the reference's batched_gemm kernel; the wave
-               record still counts the pairs padded to a multiple of it
-               (``padded_pairs``), though the CUDA kernel needs no padding.
     validate_structure : cross-check the pure-Python output structure of
                every leaf task against bsmm.compute_c_structure (the
                boolean matmul).  Costs one torch call per leaf task; meant
@@ -459,14 +458,13 @@ class TorchEngine(LeafEngine):
         g = self._graph
         return getattr(g, "tracer", NOOP) if g is not None else NOOP
 
-    def __init__(self, kernel: str = "pairs", device=None, block_t: int = 8,
+    def __init__(self, kernel: str = "pairs", device=None,
                  validate_structure: bool = False):
         if kernel not in ("pairs", "gemm"):
             raise ValueError(f"unknown kernel {kernel!r}; pick 'pairs' or "
                              f"'gemm'")
         self.kernel = kernel
         self.device = resolve_device(device)
-        self.block_t = block_t
         self.validate_structure = validate_structure
         self._pending: list[_Pending] = []
         self._unfilled: set[int] = set()     # id() of placeholder out leaves
@@ -713,22 +711,10 @@ class TorchEngine(LeafEngine):
 
     def run_solve_ready(self) -> bool:
         """Dispatch every ready batched triangular wave; True if any ran."""
-        progressed = False
-        for key, tasks in sorted(self.solve_wave().items()):
-            kind, n, bs = key
-            tr = self.tracer
-            if tr.enabled:
-                with tr.span("engine.wave", track="engine") as sp:
-                    self._waves.append(dispatch_solve_wave(
-                        tasks, kind=kind, n=n, bs=bs, device=self.device))
-                    sp.set(**self._wave_span_attrs())
-            else:
-                self._waves.append(dispatch_solve_wave(
-                    tasks, kind=kind, n=n, bs=bs, device=self.device))
-            self._waves[-1].setdefault("batch_key", list(key))
-            self.commit_tasks(tasks)
-            progressed = True
-        return progressed
+        groups = self.solve_wave()
+        self._run_waves(groups, lambda key, tasks: dispatch_solve_wave(
+            tasks, kind=key[0], n=key[1], bs=key[2], device=self.device))
+        return bool(groups)
 
     def run_host_ready(self) -> bool:
         """Execute every ready host-side fill (add/transpose/scale).
@@ -776,8 +762,7 @@ class TorchEngine(LeafEngine):
         self._bind(g)
         while self._pending:
             groups = self.ready_wave()
-            if groups:
-                self._run_wave(groups)   # commits per group (see below)
+            self._run_waves(groups, self._run_group)   # commits per group
             progressed = bool(groups)
             progressed |= self._host_fill()
             progressed |= self.run_solve_ready()
@@ -878,26 +863,24 @@ class TorchEngine(LeafEngine):
                                   "padded_pairs", "c_blocks", "bytes_packed")
                 if k in w}
 
-    def _run_wave(self, groups: dict[tuple, list[_Pending]]) -> None:
-        tr = self.tracer
+    def _run_waves(self, groups: dict, dispatch) -> None:
+        """Each group as one wave in an ``engine.wave`` span;
+        ``dispatch(key, tasks)`` runs it and returns its record."""
         for key, tasks in sorted(groups.items()):
-            if tr.enabled:
-                with tr.span("engine.wave", track="engine") as sp:
-                    self._run_group(key[2], tasks)
-                    sp.set(**self._wave_span_attrs())
-            else:
-                self._run_group(key[2], tasks)
+            with self.tracer.span("engine.wave", track="engine") as sp:
+                self._waves.append(dispatch(key, tasks))
+                sp.set(**self._wave_span_attrs())
             self._waves[-1].setdefault("batch_key", list(key))
             # commit this group immediately: a failure in a *later* group
             # must not leave these tasks pending, or a retrying flush would
             # re-run them and double-count their wave record in stats()
             self.commit_tasks(tasks)
 
-    def _run_group(self, bs: int, tasks: list[_Pending]) -> None:
-        """Pack every block pair of every leaf task into one kernel call."""
-        self._waves.append(dispatch_packed_wave(
-            tasks, bs, kernel=self.kernel, block_t=self.block_t,
-            device=self.device, tracer=self.tracer))
+    def _run_group(self, key: tuple, tasks: list[_Pending]) -> dict:
+        """One kernel call for every block pair of the wave; returns its
+        record."""
+        return dispatch_packed_wave(tasks, key[2], kernel=self.kernel,
+                                    device=self.device, tracer=self.tracer)
 
     # -- reporting -----------------------------------------------------------
     def stats(self) -> dict:
@@ -972,105 +955,123 @@ def dispatch_solve_wave(tasks: list[_Pending], *, kind: str, n: int,
     }
 
 
-def gather_wave(tasks: list[_Pending]) -> tuple:
-    """Pack one kernel wave: ``(sa, sb, seg, a_pack, b_pack, n_slots)``.
+@dataclasses.dataclass(frozen=True)
+class WaveNumbering:
+    """A kernel wave's pairs as columns, a row a pair in the wave's pair
+    order (tasks in order, each task's pairs in order): its ``task``, its
+    C ``slot`` (task ``t`` holds ``slot_base[t]`` up to ``slot_base[t +
+    1]``, in ``t.out.blocks`` order) and its operands' ``code`` (sides a,
+    b), ``(leaf * grid**2 + i * grid + j) * 2 + transpose`` for block
+    ``(i, j)`` of ``leaves[leaf]``, numbered by first appearance in the
+    wave so that every rank running the same tasks numbers alike."""
+    task: np.ndarray
+    slot: np.ndarray
+    slot_base: np.ndarray
+    code: np.ndarray
+    leaves: list
+    grid: int
 
-    C's slots are numbered task by task, each task's in ``t.out.blocks``
-    order (``n_slots`` in all).  Operands are packed *uniquely*, one slot
-    per distinct ``(leaf, key, transpose)`` block of each side, numbered
-    by first occurrence in the wave's pair order; pair ``p`` multiplies
-    ``a_pack[sa[p]] @ b_pack[sb[p]]`` into C slot ``seg[p]``, the slot-
-    indexed gather the ``bsmm_pairs`` kernel is built around.  ``seg``
-    comes back ascending (a *stable* sort, so each C block keeps its
-    pairs in task order), ``sa`` and ``sb`` permuted with it, all int32.
-    The packs are C-order float32 ``(U, bs, bs)`` stacks, transposed
-    blocks written transposed, each element rounded once from its leaf.
+    def blocks(self, codes: np.ndarray) -> list:
+        """``(leaf, key, transpose)`` of each code."""
+        leaf, rest = np.divmod(codes, 2 * self.grid * self.grid)
+        i, j = np.divmod(rest // 2, self.grid)
+        return list(zip([self.leaves[x] for x in leaf.tolist()],
+                        zip(i.tolist(), j.tolist()), (rest % 2 == 1).tolist()))
 
-    Array work over the whole wave, with no Python step a pair: the pair
-    tuples' fields are read in C-level passes, each operand block is coded
-    as one int64 (the wave's leaves numbered by identity, so tasks of
-    several engines share a wave) and numbered by one ``np.unique`` a
-    side, and each pair's output key finds its C slot by a
-    ``searchsorted`` over the tasks' C keys.
-    """
-    bs, grid = tasks[0].out.bs, tasks[0].out.grid   # one batch_key
+    def stack(self, codes: np.ndarray, rows: int) -> np.ndarray:
+        """The blocks of ``codes`` as a C-order float32 ``(rows, bs, bs)``
+        stack, zero past them, each element rounded once from its leaf
+        (np.stack alone would follow the layout of transposed views)."""
+        bs = self.leaves[0].bs
+        pack = np.empty((rows, bs, bs), np.float32)
+        pack[len(codes):] = 0
+        if len(codes):
+            np.stack([leaf.blocks[key].T if tr else leaf.blocks[key]
+                      for leaf, key, tr in self.blocks(codes)],
+                     out=pack[:len(codes)])
+        return pack
+
+
+def number_wave(tasks: list[_Pending]) -> WaveNumbering:
+    """The wave's :class:`WaveNumbering`, read from the pair tuples in
+    C-level passes."""
+    grid = tasks[0].out.grid                 # one batch_key
     cells = grid * grid
-    key_code = dict(zip(itertools.product(range(grid), repeat=2),
-                        range(cells)))
-    leaf_ix: dict[int, int] = {}
-    leaves: list[LeafMatrix] = []
-    for t in tasks:
-        for leaf in (t.a_leaf, t.b_leaf):
-            if leaf is not None and id(leaf) not in leaf_ix:
-                leaf_ix[id(leaf)] = len(leaves)
-                leaves.append(leaf)
+    leaves = list({id(x): x for t in tasks for x in (t.a_leaf, t.b_leaf)
+                   if x is not None}.values())
+    leaf_ix = {id(x): i for i, x in enumerate(leaves)}
     # each task's leaf of side 'a' (0) and 'b' (1)
     task_leaf = np.array([(leaf_ix[id(t.a_leaf)],
-                           -1 if t.b_leaf is None else leaf_ix[id(t.b_leaf)])
-                          for t in tasks], np.int64)
-    lens = [len(t.pairs) for t in tasks]
-    task = np.repeat(np.arange(len(tasks)), lens)
+                           leaf_ix.get(id(t.b_leaf), -1)) for t in tasks])
+    task = np.repeat(np.arange(len(tasks)), [len(t.pairs) for t in tasks])
     pairs = list(itertools.chain.from_iterable(t.pairs for t in tasks))
     n_pairs = len(pairs)
 
     def field(k):
         return map(operator.itemgetter(k), pairs)
 
-    def codes(k):
-        return np.fromiter(map(key_code.__getitem__, field(k)), np.int64,
-                           count=n_pairs)
+    def key_codes(keys, n):
+        ij = np.fromiter(itertools.chain.from_iterable(keys), np.int64,
+                         count=2 * n).reshape(n, 2)
+        return ij[:, 0] * grid + ij[:, 1]
 
-    def operands(k):
-        """Slots and pack of the side whose (src, key, tr) start at k."""
+    def operand_codes(k):
         # src is 'a' or 'b': one byte a pair
         side = np.frombuffer("".join(field(k)).encode(), np.uint8) - ord("a")
-        leaf = task_leaf[task, side]
-        code = (leaf * cells + codes(k + 1)) * 2 \
+        return (task_leaf[task, side] * cells
+                + key_codes(field(k + 1), n_pairs)) * 2 \
             + np.fromiter(field(k + 2), bool, count=n_pairs)
-        _, first, inverse = np.unique(code, return_index=True,
-                                      return_inverse=True)
-        by_first = np.argsort(first)
-        rank = np.empty_like(by_first)
-        rank[by_first] = np.arange(len(by_first))
-        firsts = first[by_first]
-        blocks = []
-        for li, p in zip(leaf[firsts].tolist(), firsts.tolist()):
-            _, key, tr = pairs[p][k:k + 3]
-            blk = leaves[li].blocks[key]
-            blocks.append(blk.T if tr else blk)
-        # into a C-order float32 stack: np.stack alone would follow the
-        # layout of transposed views
-        pack = np.empty((len(blocks), bs, bs), np.float32)
-        return rank[inverse].astype(np.int32), np.stack(blocks, out=pack)
-
-    sa, a_pack = operands(0)
-    sb, b_pack = operands(3)
 
     # C slots: each task's keys, coded with the task's number
     out_lens = [len(t.out.blocks) for t in tasks]
-    n_slots = sum(out_lens)
-    c_code = np.fromiter(
-        map(key_code.__getitem__,
-            itertools.chain.from_iterable(t.out.blocks for t in tasks)),
-        np.int64, count=n_slots) \
+    slot_base = np.concatenate(([0], np.cumsum(out_lens)))
+    c_code = key_codes(itertools.chain.from_iterable(
+        t.out.blocks for t in tasks), slot_base[-1]) \
         + np.repeat(np.arange(len(tasks)) * cells, out_lens)
-    p_code = codes(6) + task * cells
+    p_code = key_codes(field(6), n_pairs) + task * cells
     by_code = np.argsort(c_code)
-    seg = by_code[np.minimum(
-        np.searchsorted(c_code, p_code, sorter=by_code), n_slots - 1)]
-    if not np.array_equal(c_code[seg], p_code):
+    slot = by_code[np.minimum(np.searchsorted(c_code, p_code, sorter=by_code),
+                              slot_base[-1] - 1)]
+    if not np.array_equal(c_code[slot], p_code):
         raise KeyError("a block pair's output key is not in its task's "
                        "C structure")
+    return WaveNumbering(task, slot, slot_base, np.stack(
+        [operand_codes(0), operand_codes(3)], axis=1), leaves, grid)
 
-    # ascending segment ids (bsmm_pairs accumulation contract)
-    order = np.argsort(seg, kind="stable")
-    return (sa[order], sb[order], seg[order].astype(np.int32),
-            a_pack, b_pack, n_slots)
+
+def number_by_first(codes: np.ndarray) -> tuple:
+    """``(number, first)``: each code's number, equal codes alike, by
+    first occurrence, and each number's first position."""
+    _, first, inverse = np.unique(codes, return_index=True,
+                                  return_inverse=True)
+    by_first = np.argsort(first)
+    rank = np.empty_like(by_first)
+    rank[by_first] = np.arange(len(by_first))
+    return rank[inverse], first[by_first]
+
+
+def gather_wave(tasks: list[_Pending]) -> tuple:
+    """Pack one kernel wave: ``(sa, sb, seg, a_pack, b_pack, n_slots)``.
+
+    Each side's operands are packed *uniquely*, by first occurrence of
+    their :func:`number_wave` codes.  Pair ``p`` multiplies
+    ``a_pack[sa[p]] @ b_pack[sb[p]]`` into C slot ``seg[p]``.  ``seg`` is
+    ascending (a *stable* sort, so each C block keeps its pairs in task
+    order), ``sa`` and ``sb`` permuted with it, all int32."""
+    num = number_wave(tasks)
+    order = np.argsort(num.slot, kind="stable")   # bsmm_pairs contract
+    out = []
+    for codes in num.code.T:
+        slots, first = number_by_first(codes)
+        out.append(slots[order].astype(np.int32))
+        out.append(num.stack(codes[first], len(first)))
+    sa, a_pack, sb, b_pack = out
+    return (sa, sb, num.slot[order].astype(np.int32), a_pack, b_pack,
+            int(num.slot_base[-1]))
 
 
 def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
-                         block_t: int, device: torch.device,
-                         tracer=NOOP) -> dict:
+                         device: torch.device, tracer=NOOP) -> dict:
     """Pack every block pair of every leaf task into one kernel launch.
 
     Module-level so a cross-plan coalescer can merge same-``batch_key``
@@ -1109,14 +1110,13 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
             padded = n_pairs
         else:
             # the gather and the segment sum run on the device around the
-            # batched kernel; the record still counts the reference's
-            # padding of the batch to a multiple of block_t
+            # batched kernel; the record counts the reference's padding
             prods = kops.batched_gemm(a_dev[sa_dev.long()],
                                       b_dev[sb_dev.long()])
             c_dev = torch.zeros((n_slots, bs, bs), dtype=torch.float32,
                                 device=device)
             c_dev.index_add_(0, seg_dev.long(), prods)
-            padded = n_pairs + (-n_pairs) % block_t
+            padded = n_pairs + (-n_pairs) % GEMM_BATCH_TILE
         with tracer.span("copy.d2h", track="engine"):
             c = c_dev.cpu().numpy()
             _sync(device)

@@ -13,12 +13,12 @@ per-device communication volume reported by :meth:`stats` is therefore
 simulator's cost model.
 
 Every rank runs the same host program (the same ``Session``, the same
-tasks in the same order), computes the same global wave plan and executes
-only its own share.  Plan tables are keyed by ``id(leaf)``, which differs
-between processes, so every order here is insertion order or pair order,
-never an order of those keys.  Before it ships anything a wave gathers
-each rank's counter deltas together with a fingerprint of the plan, and a
-rank whose plan differs raises instead of sending mismatched buffers.
+tasks in the same order), plans each whole wave with :func:`plan_wave`
+from the engine's one wave numbering, which numbers leaves by first
+appearance and not by ``id(leaf)``, so every rank plans alike, and runs
+only its own share.  Before it ships anything a wave gathers each rank's
+counter deltas together with a fingerprint of the plan, and a rank whose
+plan differs raises instead of sending mismatched buffers.
 
 Ownership (the paper's parent-worker rendering, §6/Table 1):
 
@@ -50,6 +50,7 @@ so does the small per-wave gather of the counters themselves.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
@@ -57,12 +58,107 @@ import numpy as np
 import torch
 
 from repro_torch.core import distributed as cdist
-from repro_torch.core.engine import TorchEngine, _Pending, _to_device
+from repro_torch.core.engine import (TorchEngine, WaveNumbering, _Pending,
+                                     _to_device, number_by_first,
+                                     number_wave)
 from repro_torch.core.leaf import unpack_blocks
 
 #: counters every rank keeps for itself and the wave gathers, in this order
 _COUNTERS = ("fetched_bytes", "fetched_blocks", "pushed_bytes",
              "collective_bytes")
+
+
+@dataclasses.dataclass
+class MeshPlan:
+    """One wave's plan as rank ``me`` sees it.  Operand slots are numbered
+    jointly over both sides, by first occurrence in the order a0, b0, a1,
+    b1, ... of the wave's pairs.  Rank ``h`` holds slots ``own[h]``, the
+    first rows of its pool, and sends ``ship[s][h]`` to rank ``(h + s) %
+    n_dev`` in that rank's order of need; each rank's pool then has one
+    segment of ``cnts[x]`` rows for each shift ``s``, ascending."""
+    slot_code: np.ndarray   # each slot's WaveNumbering code
+    home: np.ndarray        # each slot's rank
+    leaf_homes: dict        # id(leaf) -> rank, for the leaves read
+    own: list
+    ship: dict
+    cnts: list
+    send: list              # per shift: this rank's rows to send, padded
+    fetch: np.ndarray       # this rank's remote slots, in order of need
+    out_base: np.ndarray    # each task's first C slot on its rank
+    n_out: list             # per rank: its C slots
+    n_pairs: list           # per rank: its pairs
+    cap_own: int
+    cap_c: int
+    cap_p: int
+    # this rank's pairs: the pool rows of their operands and their C
+    # slot, sorted stably by C slot and padded to cap_p with seg = cap_c
+    sa: np.ndarray
+    sb: np.ndarray
+    seg: np.ndarray
+
+
+def plan_wave(num: WaveNumbering, owners: np.ndarray, owner_of: dict,
+              n_dev: int, me: int) -> MeshPlan:
+    """Plan a wave from its numbering, with no collective call and no
+    state.  ``owners`` is each task's rank, non-decreasing; ``owner_of``
+    maps ``id(leaf)`` to the rank that produced or first read the leaf."""
+    two_cells = 2 * num.grid * num.grid
+    pair_dev = owners[num.task]
+    codes = num.code.ravel()
+    joint, first = number_by_first(codes)
+    slot_code = codes[first]
+    # a leaf new to the mesh is homed on the first rank to read it
+    leaf_ix, leaf_first = np.unique(codes // two_cells, return_index=True)
+    leaf_homes = {lid: owner_of.get(lid, d) for lid, d in zip(
+        [id(num.leaves[x]) for x in leaf_ix.tolist()],
+        pair_dev[leaf_first // 2].tolist())}
+    leaf_home = np.zeros(len(num.leaves), np.int64)
+    leaf_home[leaf_ix] = list(leaf_homes.values())
+    home = leaf_home[slot_code // two_cells]
+    own = [np.flatnonzero(home == h) for h in range(n_dev)]
+    own_pos = np.zeros(len(slot_code), np.int64)
+    for o in own:
+        own_pos[o] = np.arange(len(o))
+    cap_own = max(1, max(map(len, own)))
+
+    pair_run = np.searchsorted(pair_dev, np.arange(n_dev + 1))
+    task_run = np.searchsorted(owners, np.arange(n_dev + 1))
+    ship: dict = {}
+    for d in range(n_dev):
+        run = joint[2 * pair_run[d]:2 * pair_run[d + 1]]
+        need = run[np.sort(np.unique(run, return_index=True)[1])]
+        remote = need[home[need] != d]
+        shift = (d - home[remote]) % n_dev
+        for s in np.unique(shift).tolist():
+            ship.setdefault(s, [np.zeros(0, np.int64)] * n_dev)[
+                (d - s) % n_dev] = remote[shift == s]
+        if d == me:
+            fetch = remote
+    ship = dict(sorted(ship.items()))
+    cnts = [max(map(len, lists)) for lists in ship.values()]
+    pos = own_pos.copy()            # this rank's pool row of each slot
+    send, off = [], cap_own
+    for (s, lists), cnt in zip(ship.items(), cnts):
+        got = lists[(me - s) % n_dev]
+        pos[got] = off + np.arange(len(got))
+        off += cnt
+        send.append(np.zeros(cnt, np.int64))
+        send[-1][:len(lists[me])] = own_pos[lists[me]]
+
+    n_out = np.diff(num.slot_base[task_run])
+    n_pairs = np.diff(pair_run)
+    cap_c, cap_p = max(1, int(n_out.max())), max(1, int(n_pairs.max()))
+    mine = joint[2 * pair_run[me]:2 * pair_run[me + 1]].reshape(-1, 2)
+    c = num.slot[pair_run[me]:pair_run[me + 1]] - num.slot_base[task_run[me]]
+    order = np.argsort(c, kind="stable")
+    sa, sb = np.zeros((2, cap_p), np.int32)
+    seg = np.full(cap_p, cap_c, np.int32)
+    sa[:len(c)], sb[:len(c)] = pos[mine[order]].T
+    seg[:len(c)] = c[order]
+    return MeshPlan(
+        slot_code, home, leaf_homes, own, ship, cnts, send, fetch,
+        num.slot_base[:-1] - num.slot_base[task_run[owners]],
+        n_out.tolist(), n_pairs.tolist(), cap_own, cap_c, cap_p, sa, sb, seg)
 
 
 class MeshEngine(TorchEngine):
@@ -76,8 +172,6 @@ class MeshEngine(TorchEngine):
         or ``"pairs"`` (the fused bsmm_pairs gather-GEMM-scatter).
     device : where this rank's kernel runs; None -> the CUDA device (raises
         without one), ``"cpu"`` runs the kernels' plain versions.
-    block_t : batch tile of the reference's batched_gemm kernel (kept for
-        the wave record; the CUDA kernel needs no padding).
     group : the ``torch.distributed`` group of the ranks.  None is the
         default group when torch.distributed is initialised, else a world
         of one that makes no collective call.  An NCCL group ships CUDA
@@ -93,8 +187,8 @@ class MeshEngine(TorchEngine):
     name = "mesh"
 
     def __init__(self, n_dev: Optional[int] = None, kernel: str = "gemm",
-                 device=None, block_t: int = 8, group=None):
-        super().__init__(kernel=kernel, device=device, block_t=block_t)
+                 device=None, group=None):
+        super().__init__(kernel=kernel, device=device)
         self.group = group
         self._n_dev_req = n_dev
         self._ready_mesh = False
@@ -140,202 +234,107 @@ class MeshEngine(TorchEngine):
         return self.group is not None or self.n_dev > 1
 
     # -- wave execution ------------------------------------------------------
-    def _run_group(self, bs: int, tasks: list[_Pending]) -> None:
-        """One rank-sharded dispatch for every block pair of the wave."""
+    def _run_group(self, key: tuple, tasks: list[_Pending]) -> dict:
+        """One rank-sharded dispatch of the wave; returns its record."""
         from repro_torch.kernels import ops as kops
 
         self._ensure_mesh()
-        n_dev, me = self.n_dev, self.rank
+        n_dev, me, bs = self.n_dev, self.rank, key[2]
         bsz = bs * bs * 4               # float32 wire format
         t0 = time.perf_counter()
-
-        # 1. task ownership: contiguous balanced split in registration
-        # (quadtree DFS ~ Morton) order — core.distributed's closed form
         nt = len(tasks)
         owners = ((np.arange(nt, dtype=np.int64) + 1) * n_dev - 1) // nt
-        owners = owners.astype(np.int32)
+        num = number_wave(tasks)
+        plan = plan_wave(num, owners, self._owner, n_dev, me)
+        self._owner.update(plan.leaf_homes)
+        self._owner.update(zip((id(t.out) for t in tasks), owners.tolist()))
 
-        # 2. operand slots: one per distinct (leaf, key, transpose),
-        # homed on the leaf's owning rank (producer, else first touch)
-        slot_home: dict[tuple, int] = {}
-        slot_leaf: dict[tuple, object] = {}
-        needs: list[dict] = [dict() for _ in range(n_dev)]  # ordered sets
-        for t, dev in zip(tasks, owners):
-            dev = int(dev)
-            self._owner[id(t.out)] = dev
-            srcs = {"a": t.a_leaf, "b": t.b_leaf}
-            for src_a, ka, tra, src_b, kb, trb, _ in t.pairs:
-                for src, kk, tr in ((src_a, ka, tra), (src_b, kb, trb)):
-                    leaf = srcs[src]
-                    sk = (id(leaf), kk, tr)
-                    if sk not in slot_home:
-                        slot_home[sk] = self._owner.setdefault(id(leaf), dev)
-                        slot_leaf[sk] = leaf
-                    needs[dev].setdefault(sk)
-
-        def version(sk):
-            return getattr(slot_leaf[sk], "_version", 0)
-
-        # 3. per-rank own pools (+ push accounting on this rank: host ->
-        # device uploads of blocks not resident at their current version)
-        delta = dict.fromkeys(_COUNTERS, 0)
-        own_keys: list[list] = [[] for _ in range(n_dev)]
-        own_pos: dict[tuple, int] = {}
-        for sk, h in slot_home.items():
-            own_pos[sk] = len(own_keys[h])
-            own_keys[h].append(sk)
-            if h == me and self._resident.get(sk) != version(sk):
-                self._resident[sk] = version(sk)
-                delta["pushed_bytes"] += bsz
-        cap_own = max(1, max((len(k) for k in own_keys), default=1))
-        own_pool = np.zeros((cap_own, bs, bs), np.float32)
-        for i, sk in enumerate(own_keys[me]):
-            blk = slot_leaf[sk].blocks[sk[1]]
-            own_pool[i] = blk.T if sk[2] else blk
-
-        # 4. shipments grouped by ring shift s = (dst - home) mod n_dev;
-        # every rank sends the same padded count per shift
-        ship: dict[int, list[list]] = {}    # shift -> per-src slot keys
-        ship_pos: dict[tuple, int] = {}     # (shift, slot key) -> position
-        for d in range(n_dev):
-            for sk in needs[d]:
-                h = slot_home[sk]
-                if h == d:
-                    continue
-                s = (d - h) % n_dev
-                lst = ship.setdefault(s, [[] for _ in range(n_dev)])[h]
-                ship_pos[(s, sk)] = len(lst)
-                lst.append(sk)
-                if d == me and self._resident.get(sk) != version(sk):
-                    self._resident[sk] = version(sk)
-                    delta["fetched_bytes"] += bsz
-                    delta["fetched_blocks"] += 1
-        shifts = sorted(ship)
-        cnts = [max(len(lst) for lst in ship[s]) for s in shifts]
-        delta["collective_bytes"] = sum(cnts) * bsz   # this rank receives
-        # pool position of slot sk as seen by rank d: the own segment,
-        # then one recv segment per shift at a static offset
-        seg_off = {}
-        off = cap_own
-        for s, cnt in zip(shifts, cnts):
-            seg_off[s] = off
-            off += cnt
-        pool_len = off
-
-        def pos_on(d: int, sk: tuple) -> int:
-            h = slot_home[sk]
-            if h == d:
-                return own_pos[sk]
-            s = (d - h) % n_dev
-            return seg_off[s] + ship_pos[(s, sk)]
-
-        # 5. pair tables (sa/sb into the halo'd pool, seg into the
-        # rank-local output slots; cap-padded, seg=cap_c invalid)
-        out_base: list[int] = []
-        n_out = [0] * n_dev
-        for t, dev in zip(tasks, owners):
-            out_base.append(n_out[int(dev)])
-            n_out[int(dev)] += len(t.out.blocks)
-        cap_c = max(1, max(n_out))
-        my_pairs: list = []
-        n_pairs = [0] * n_dev
-        for t, dev, base in zip(tasks, owners, out_base):
-            dev = int(dev)
-            n_pairs[dev] += len(t.pairs)
-            if dev != me:
-                continue
-            key_slot = {key: base + i
-                        for i, key in enumerate(t.out.blocks)}
-            srcs = {"a": t.a_leaf, "b": t.b_leaf}
-            for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
-                my_pairs.append(
-                    (pos_on(me, (id(srcs[src_a]), ka, tra)),
-                     pos_on(me, (id(srcs[src_b]), kb, trb)),
-                     key_slot[out_key]))
-        cap_p = max(1, max(n_pairs))
-        sa = np.zeros(cap_p, np.int32)
-        sb = np.zeros(cap_p, np.int32)
-        seg = np.full(cap_p, cap_c, np.int32)
-        # ascending output slots (bsmm_pairs accumulation contract; the
-        # cap_c padding sorts to the tail); the sort is stable
-        for i, (pa, pb, pc) in enumerate(sorted(my_pairs,
-                                                key=lambda x: x[2])):
-            sa[i], sb[i], seg[i] = pa, pb, pc
+        mine = plan.slot_code[plan.own[me]]
+        pushed = self._make_resident(num.blocks(mine))
+        fetched = self._make_resident(num.blocks(plan.slot_code[plan.fetch]))
+        delta = {"pushed_bytes": pushed * bsz, "fetched_bytes": fetched * bsz,
+                 "fetched_blocks": fetched,
+                 "collective_bytes": sum(plan.cnts) * bsz}
+        own_pool = num.stack(mine, plan.cap_own)
 
         # the ranks agree on the plan, and learn each other's counters
-        fingerprint = hash((nt, len(slot_home), tuple(shifts), tuple(cnts),
-                            cap_own, cap_c, cap_p, tuple(n_out),
-                            tuple(n_pairs)))
+        fingerprint = hash((nt, len(plan.slot_code), tuple(plan.ship),
+                            tuple(plan.cnts), plan.cap_own, plan.cap_c,
+                            plan.cap_p, tuple(plan.n_out),
+                            tuple(plan.n_pairs)))
         by_dev = self._gather_counters(fingerprint, delta)
 
-        # 6. ship this rank's segments, then one kernel launch on its pool
-        kernel, device = self.kernel, self.device
-        tr = self.tracer
-        if tr.enabled and shifts:
+        # ship this rank's segments, then one kernel launch on its pool
+        kernel, device, tr = self.kernel, self.device, self.tracer
+        shipped = sum(len(x) for lists in plan.ship.values() for x in lists)
+        if tr.enabled and plan.ship:
             tr.instant("collective.ppermute", track="engine",
-                       shifts=len(shifts),
-                       shipped_blocks=int(sum(len(lst) for s in shifts
-                                              for lst in ship[s])),
-                       padded_shipped_blocks=int(sum(cnts) * n_dev))
+                       shifts=len(plan.ship), shipped_blocks=shipped,
+                       padded_shipped_blocks=sum(plan.cnts) * n_dev)
         with tr.span("kernel.dispatch", track="engine", kernel=kernel,
-                     bs=bs, n_dev=n_dev, pairs=int(sum(n_pairs))):
+                     bs=bs, n_dev=n_dev, pairs=sum(plan.n_pairs)):
             own_dev = _to_device(own_pool, device)
-            sends = []
-            for s, cnt in zip(shifts, cnts):
-                sel = np.zeros(cnt, np.int64)
-                for i, sk in enumerate(ship[s][me]):
-                    sel[i] = own_pos[sk]
-                sends.append((own_dev[torch.from_numpy(sel).to(device)], s))
+            sends = [(own_dev[torch.from_numpy(sel).to(device)], s)
+                     for s, sel in zip(plan.ship, plan.send)]
             got = cdist.ring_shift(self.group, sends) \
                 if self._collective() else []
             pool = torch.cat([own_dev] + got) if got else own_dev
-            sa_d, sb_d, seg_d = (_to_device(x, device) for x in (sa, sb, seg))
+            sa_d, sb_d, seg_d = (_to_device(x, device)
+                                 for x in (plan.sa, plan.sb, plan.seg))
             if kernel == "pairs":
                 c = kops.bsmm_pairs(pool, pool, sa_d, sb_d, seg_d,
-                                    cap_c=cap_c)
+                                    cap_c=plan.cap_c)
             else:
                 prods = kops.batched_gemm(pool[sa_d.long()], pool[sb_d.long()])
-                c = torch.zeros((cap_c + 1, bs, bs), dtype=torch.float32,
+                c = torch.zeros((plan.cap_c + 1, bs, bs), dtype=torch.float32,
                                 device=device)
                 c.index_add_(0, seg_d.long(), prods)
-                c = c[:cap_c]
+                c = c[:plan.cap_c]
             c_all = cdist.all_gather(self.group, c) \
                 if self._collective() else c[None]
             c_np = c_all.cpu().numpy()
 
-        # 7. scatter into the placeholder out leaves; produced blocks are
+        # scatter into the placeholder out leaves; produced blocks are
         # now resident on their owner (backed by the retained shard)
-        for t, dev, base in zip(tasks, owners, out_base):
-            dev = int(dev)
+        for t, dev, base in zip(tasks, owners.tolist(),
+                                plan.out_base.tolist()):
             keys = list(t.out.blocks)
             unpack_blocks(t.out, keys, c_np[dev, base:base + len(keys)])
             if dev == me:
                 self._dev_out[id(t.out)] = c
-                ver = getattr(t.out, "_version", 0)
-                for key in keys:
-                    self._resident[(id(t.out), key, False)] = ver
+                self._make_resident([(t.out, key, False) for key in keys])
 
         wall = time.perf_counter() - t0
-        shipped = sum(len(lst) for s in shifts for lst in ship[s])
-        self._waves.append({
-            "kernel": kernel, "bs": bs, "tasks": nt, "pairs": sum(n_pairs),
-            "padded_pairs": int(cap_p * n_dev),
-            "unique_blocks": len(slot_home), "c_blocks": int(sum(n_out)),
-            "wall_s": wall,
-            "bytes_packed": int(n_dev * (cap_own + cap_c) * bsz),
-        })
         self._comm_log.append({
-            "bs": bs, "n_dev": n_dev, "tasks": nt, "pairs": sum(n_pairs),
-            "shifts": len(shifts), "shipped_blocks": int(shipped),
-            "padded_shipped_blocks": int(sum(cnts) * n_dev),
+            "bs": bs, "n_dev": n_dev, "tasks": nt,
+            "pairs": sum(plan.n_pairs), "shifts": len(plan.ship),
+            "shipped_blocks": shipped,
+            "padded_shipped_blocks": sum(plan.cnts) * n_dev,
             "fetched_blocks": int(sum(by_dev["fetched_blocks"])),
-            "pool_len": int(pool_len), "cap_c": int(cap_c),
+            "pool_len": plan.cap_own + sum(plan.cnts), "cap_c": plan.cap_c,
             "wall_s": wall,
             # this wave's per-device counter deltas, gathered from every
             # rank (exported as Perfetto counter tracks; see
             # obs/export.mesh_stats_events)
             **{f"{k}_by_dev": by_dev[k] for k in _COUNTERS},
         })
+        return {
+            "kernel": kernel, "bs": bs, "tasks": nt,
+            "pairs": sum(plan.n_pairs), "padded_pairs": plan.cap_p * n_dev,
+            "unique_blocks": len(plan.slot_code),
+            "c_blocks": sum(plan.n_out), "wall_s": wall,
+            "bytes_packed": n_dev * (plan.cap_own + plan.cap_c) * bsz,
+        }
+
+    def _make_resident(self, blocks: list) -> int:
+        """Record ``(leaf, key, transpose)`` blocks as resident on this
+        rank at their leaf's version; returns how many were not."""
+        stale = {(id(leaf), key, tr): getattr(leaf, "_version", 0)
+                 for leaf, key, tr in blocks}
+        stale = {sk: v for sk, v in stale.items()
+                 if self._resident.get(sk) != v}
+        self._resident.update(stale)
+        return len(stale)
 
     def _gather_counters(self, fingerprint: int, delta: dict) -> dict:
         """Every rank's counter deltas of this wave, by rank; raises if the

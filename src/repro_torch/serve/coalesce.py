@@ -84,14 +84,12 @@ class WaveCoalescer:
             merged: dict = {}
             for _, eng in mergeable:
                 for key, tasks in eng.ready_wave().items():
-                    # kernel params beyond the batch key must also agree
-                    # for the shares to be dispatch-compatible, and two
-                    # devices never share a wave
-                    mk = (key, eng.block_t, eng.device)
-                    merged.setdefault(mk, []).append((eng, tasks))
-            for (key, block_t, device), parts in sorted(
+                    # two devices never share a wave
+                    merged.setdefault((key, eng.device), []).append(
+                        (eng, tasks))
+            for (key, device), parts in sorted(
                     merged.items(), key=lambda kv: kv[0][0]):
-                self._dispatch(key, block_t, device, parts)
+                self._dispatch(key, device, parts)
                 dispatches += 1
                 progressed = True
             if not any(eng._pending for _, eng in mergeable):
@@ -102,16 +100,15 @@ class WaveCoalescer:
                     "dependencies across in-flight plans")
         return dispatches
 
-    def _dispatch(self, key: tuple, block_t: int, device, parts: list
-                  ) -> None:
+    def _dispatch(self, key: tuple, device, parts: list) -> None:
         kernel, _, bs, _ = key
         all_tasks = [t for _, tasks in parts for t in tasks]
         with self.tracer.span("serve.wave", track="serve",
                               engines=len(parts), tasks=len(all_tasks),
                               kernel=kernel, bs=bs):
             record = dispatch_packed_wave(
-                all_tasks, bs, kernel=kernel, block_t=block_t,
-                device=device, tracer=self.tracer)
+                all_tasks, bs, kernel=kernel, device=device,
+                tracer=self.tracer)
         record["batch_key"] = list(key)
         record["engines"] = len(parts)
         self.waves.append(record)

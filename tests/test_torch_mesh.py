@@ -1,6 +1,6 @@
 """The port's mesh executor (``launch/mesh_exec.py``) against the reference's.
 
-Pinned four ways:
+Pinned five ways:
 
 1. **World of one, in process** — ``Session(engine=MeshEngine(device=
    "cpu"))`` matches the numpy engine within 1e-4 and the reference's
@@ -17,6 +17,10 @@ Pinned four ways:
    stats.
 4. **Contract** — no fallback: without CUDA ``MeshEngine()`` raises; a
    group smaller than ``n_dev`` raises.
+5. **Planner** — :func:`~repro_torch.launch.mesh_exec.plan_wave` against
+   the per-pair loops it replaced, kept here as the oracle, on every wave
+   of the gather cases at 1, 2, 4 and 8 ranks and for every rank; and a
+   world of one gives the bits of a ``TorchEngine``.
 """
 import functools
 import json
@@ -34,8 +38,11 @@ import repro_torch  # noqa: E402
 from repro.core.patterns import (banded_mask, random_mask,  # noqa: E402
                                  random_symmetric_mask, values_for_mask)
 from repro.launch.mesh_exec import MeshEngine as RefMeshEngine  # noqa: E402
+from repro_torch.core import engine as t_engine  # noqa: E402
+from repro_torch.launch import mesh_exec  # noqa: E402
 from repro_torch.launch.mesh_exec import MeshEngine  # noqa: E402
 from test_torch_distributed import P4, ROOT, SCRIPT, run_ranks  # noqa: E402
+from test_torch_gather import CASES as GATHER_CASES  # noqa: E402
 
 N, LEAF_N, BS = 64, 16, 4
 TOL = dict(atol=1e-4)          # mesh packs float32; numpy is float64
@@ -141,6 +148,188 @@ class TestWorldOfOne:
         assert st["collective_bytes"] == [0] and st["n_dev"] == 1
         for x, y in zip(res, rres):
             np.testing.assert_allclose(x, y, atol=1e-5)
+
+
+def _loop_plan(tasks, owners, owner_map, n_dev, me):
+    """The per-pair loops the mesh planned its waves with before
+    ``plan_wave``, without the residency accounting.  Updates
+    ``owner_map`` as the engine's ``_owner`` was."""
+    # operand slots: one per distinct (leaf, key, transpose), homed on
+    # the leaf's owning rank (producer, else first touch)
+    slot_home, slot_leaf = {}, {}
+    needs = [dict() for _ in range(n_dev)]      # ordered sets
+    for t, dev in zip(tasks, owners.tolist()):
+        owner_map[id(t.out)] = dev
+        srcs = {"a": t.a_leaf, "b": t.b_leaf}
+        for src_a, ka, tra, src_b, kb, trb, _ in t.pairs:
+            for src, kk, tr in ((src_a, ka, tra), (src_b, kb, trb)):
+                leaf = srcs[src]
+                sk = (id(leaf), kk, tr)
+                if sk not in slot_home:
+                    slot_home[sk] = owner_map.setdefault(id(leaf), dev)
+                    slot_leaf[sk] = leaf
+                needs[dev].setdefault(sk)
+    # per-rank own pools
+    own_keys = [[] for _ in range(n_dev)]
+    own_pos = {}
+    for sk, h in slot_home.items():
+        own_pos[sk] = len(own_keys[h])
+        own_keys[h].append(sk)
+    cap_own = max(1, max(len(k) for k in own_keys))
+    bs = tasks[0].out.bs
+    own_pool = np.zeros((cap_own, bs, bs), np.float32)
+    for i, sk in enumerate(own_keys[me]):
+        blk = slot_leaf[sk].blocks[sk[1]]
+        own_pool[i] = blk.T if sk[2] else blk
+    # shipments grouped by ring shift s = (dst - home) mod n_dev
+    ship, ship_pos, fetch = {}, {}, []
+    for d in range(n_dev):
+        for sk in needs[d]:
+            h = slot_home[sk]
+            if h == d:
+                continue
+            s = (d - h) % n_dev
+            lst = ship.setdefault(s, [[] for _ in range(n_dev)])[h]
+            ship_pos[(s, sk)] = len(lst)
+            lst.append(sk)
+            if d == me:
+                fetch.append(sk)
+    shifts = sorted(ship)
+    cnts = [max(len(lst) for lst in ship[s]) for s in shifts]
+    seg_off, off = {}, cap_own
+    for s, cnt in zip(shifts, cnts):
+        seg_off[s] = off
+        off += cnt
+    send = []
+    for s, cnt in zip(shifts, cnts):
+        sel = np.zeros(cnt, np.int64)
+        for i, sk in enumerate(ship[s][me]):
+            sel[i] = own_pos[sk]
+        send.append(sel)
+
+    def pos_on(d, sk):
+        h = slot_home[sk]
+        if h == d:
+            return own_pos[sk]
+        s = (d - h) % n_dev
+        return seg_off[s] + ship_pos[(s, sk)]
+
+    # pair tables
+    out_base, n_out = [], [0] * n_dev
+    for t, dev in zip(tasks, owners.tolist()):
+        out_base.append(n_out[dev])
+        n_out[dev] += len(t.out.blocks)
+    cap_c = max(1, max(n_out))
+    my_pairs, n_pairs = [], [0] * n_dev
+    for t, dev, base in zip(tasks, owners.tolist(), out_base):
+        n_pairs[dev] += len(t.pairs)
+        if dev != me:
+            continue
+        key_slot = {key: base + i for i, key in enumerate(t.out.blocks)}
+        srcs = {"a": t.a_leaf, "b": t.b_leaf}
+        for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
+            my_pairs.append((pos_on(me, (id(srcs[src_a]), ka, tra)),
+                             pos_on(me, (id(srcs[src_b]), kb, trb)),
+                             key_slot[out_key]))
+    cap_p = max(1, max(n_pairs))
+    sa = np.zeros(cap_p, np.int32)
+    sb = np.zeros(cap_p, np.int32)
+    seg = np.full(cap_p, cap_c, np.int32)
+    for i, (pa, pb, pc) in enumerate(sorted(my_pairs, key=lambda x: x[2])):
+        sa[i], sb[i], seg[i] = pa, pb, pc
+    return dict(slot_home=slot_home, own_keys=own_keys, own_pos=own_pos,
+                own_pool=own_pool, ship={s: ship[s] for s in shifts},
+                ship_pos=ship_pos, cnts=cnts, fetch=fetch, send=send,
+                pool_len=off, out_base=out_base, n_out=n_out,
+                n_pairs=n_pairs, cap_own=cap_own, cap_c=cap_c, cap_p=cap_p,
+                sa=sa, sb=sb, seg=seg)
+
+
+def _same_bytes(x, y):
+    assert (x.dtype, x.shape) == (y.dtype, y.shape)
+    assert x.tobytes() == y.tobytes()
+
+
+def _check_plan(num, tasks, owners, owner_map, n_dev, me):
+    """plan_wave's tables against the oracle's, at one rank; returns the
+    owner map as the engine leaves it after the wave."""
+    plan = mesh_exec.plan_wave(num, owners, owner_map, n_dev, me)
+    old_map = dict(owner_map)
+    want = _loop_plan(tasks, owners, old_map, n_dev, me)
+    keys = [(id(leaf), key, tr) for leaf, key, tr
+            in num.blocks(plan.slot_code)]
+    assert keys == list(want["slot_home"])
+    assert plan.home.tolist() == list(want["slot_home"].values())
+    assert [[keys[i] for i in o] for o in plan.own] == want["own_keys"]
+    assert {keys[i]: p for o in plan.own
+            for p, i in enumerate(o.tolist())} == want["own_pos"]
+    ship = {s: [[keys[i] for i in lst] for lst in lists]
+            for s, lists in plan.ship.items()}
+    assert list(ship) == list(want["ship"]) and ship == want["ship"]
+    assert {(s, sk): p for s, lists in ship.items() for lst in lists
+            for p, sk in enumerate(lst)} == want["ship_pos"]
+    assert [keys[i] for i in plan.fetch] == want["fetch"]
+    assert plan.cap_own + sum(plan.cnts) == want["pool_len"]
+    assert plan.out_base.tolist() == want["out_base"]
+    for k in ("cnts", "n_out", "n_pairs", "cap_own", "cap_c", "cap_p"):
+        assert getattr(plan, k) == want[k], k
+    for x, y in zip(plan.send, want["send"], strict=True):
+        _same_bytes(x, y)
+    for k in ("sa", "sb", "seg"):
+        _same_bytes(getattr(plan, k), want[k])
+    _same_bytes(num.stack(plan.slot_code[plan.own[me]], plan.cap_own),
+                want["own_pool"])
+    new_map = dict(owner_map)
+    new_map.update(plan.leaf_homes)
+    new_map.update(zip((id(t.out) for t in tasks), owners.tolist()))
+    assert new_map == old_map
+    return new_map
+
+
+class TestPlanner:
+    """plan_wave on the CPU with no process group."""
+
+    @pytest.mark.parametrize("case", [c for c in GATHER_CASES
+                                      if c != "two_engines"])
+    def test_plan_equals_the_per_pair_loops(self, monkeypatch, case):
+        owner_maps = {n: {} for n in (1, 2, 4, 8)}
+        waves = []
+
+        def checked(tasks):
+            num = mesh_exec.number_wave(tasks)
+            nt = len(tasks)
+            for n_dev, owner_map in owner_maps.items():
+                owners = ((np.arange(nt) + 1) * n_dev - 1) // nt
+                for me in range(n_dev):
+                    after = _check_plan(num, tasks, owners, owner_map,
+                                        n_dev, me)
+                owner_maps[n_dev] = after
+            waves.append(nt)
+            return gather(tasks)
+
+        gather = t_engine.gather_wave
+        monkeypatch.setattr(t_engine, "gather_wave", checked)
+        GATHER_CASES[case]()
+        assert waves
+
+    def test_world_of_one_bits_equal_torch_engine(self):
+        """Every wave of the pairs route packs the same products in the
+        same order on both engines, so C is the same bits."""
+        a = values_for_mask(banded_mask(N, 5), seed=1)
+        b = values_for_mask(random_mask(N, 0.15, seed=6), seed=6)
+        s = values_for_mask(random_symmetric_mask(N, 0.15, seed=7), seed=7,
+                            symmetric=True)
+        got = []
+        for eng in (MeshEngine(kernel="pairs", device="cpu"),
+                    t_engine.TorchEngine(kernel="pairs", device="cpu")):
+            sess = repro_torch.Session(engine=eng, leaf_n=LEAF_N, bs=BS)
+            A, B = sess.from_dense(a), sess.from_dense(b)
+            S = sess.from_dense(s, upper=True)
+            outs = [A @ B, A.T @ B, (A @ B) @ A.T, S.sym_square(), A.syrk(),
+                    S.sym_multiply(B), A.multiply(B, tau=0.5)]
+            got.append([o.to_dense() for o in outs])
+        for x, y in zip(*got, strict=True):
+            _same_bytes(x, y)
 
 
 class TestLifecycle:
