@@ -42,7 +42,6 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
-import operator
 import time
 from typing import Any, Optional
 
@@ -189,11 +188,43 @@ def _full_items(leaf: LeafMatrix):
             yield j, i, (i, j), True
 
 
+def operand_views(payload: LeafPayload) -> tuple:
+    """``((src, view), (src, view), upper)`` of a multiply-kind task: the
+    leaf (src 'a' or 'b') each operand of its block products reads, in
+    which view — op(leaf) is the leaf ('plain'), its transpose ('T') or
+    the full symmetric matrix of an upper-storage leaf ('full') — and
+    whether C is kept in upper storage (lower-triangle products
+    skipped)."""
+    k = payload.kind
+    if k == "multiply":
+        return (("a", "T" if payload.ta else "plain"),
+                ("b", "T" if payload.tb else "plain"), False)
+    if k == "sym_square":
+        return ("a", "full"), ("a", "full"), True
+    if k == "syrk":                     # A^T A, or A A^T
+        t = ("T", "plain") if payload.trans else ("plain", "T")
+        return ("a", t[0]), ("a", t[1]), True
+    if k == "sym_multiply":             # S B, or B S
+        if payload.side == "left":
+            return ("a", "full"), ("b", "plain"), False
+        return ("b", "plain"), ("a", "full"), False
+    raise ValueError(f"not a multiply-kind payload: {k}")
+
+
+def truncates(payload: LeafPayload) -> bool:
+    """Whether the task drops block pairs by their norms: a multiply with
+    tau > 0 (the symmetric kinds take no tau)."""
+    return payload.tau > 0.0 and payload.kind == "multiply"
+
+
 def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
                     b_leaf: Optional[LeafMatrix], tracer=NOOP):
-    """All surviving block GEMMs of one leaf task.
+    """All surviving block GEMMs of one leaf task, one tuple a pair: the
+    host reference enumerator (the numpy backend's truncated path and
+    ``validate_structure``; the torch backend builds its pairs as columns,
+    :func:`number_wave`).
 
-    Returns ``(pairs, upper_out)`` where each pair is
+    Returns ``(pairs, upper)`` where each pair is
     ``(src_a, key_a, trans_a, src_b, key_b, trans_b, out_key)`` with src in
     {'a', 'b'} naming which operand leaf the stored block comes from.  The
     pair count equals the numpy backend's LeafStats.block_multiplies.
@@ -203,44 +234,21 @@ def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
     :meth:`~repro_torch.obs.tracer.Tracer.clock`, from the first norm
     lookup to the kept list (``trunc.test_s``).
     """
-    k = payload.kind
-    if k == "multiply":
-        assert not a_leaf.upper and not b_leaf.upper  # host-library contract
-        first = ("a", _plain_items(a_leaf, payload.ta))
-        second = ("b", _plain_items(b_leaf, payload.tb))
-        upper = False
-    elif k == "sym_square":
-        assert a_leaf.upper
-        first = ("a", _full_items(a_leaf))
-        second = ("a", _full_items(a_leaf))
-        upper = True
-    elif k == "syrk":
-        assert not a_leaf.upper
-        if payload.trans:   # C = A^T A
-            first = ("a", _plain_items(a_leaf, True))
-            second = ("a", _plain_items(a_leaf, False))
-        else:               # C = A A^T
-            first = ("a", _plain_items(a_leaf, False))
-            second = ("a", _plain_items(a_leaf, True))
-        upper = True
-    elif k == "sym_multiply":
-        assert a_leaf.upper and not b_leaf.upper
-        if payload.side == "left":      # C = S B
-            first = ("a", _full_items(a_leaf))
-            second = ("b", _plain_items(b_leaf, False))
-        else:                            # C = B S
-            first = ("b", _plain_items(b_leaf, False))
-            second = ("a", _full_items(a_leaf))
-        upper = False
-    else:
-        raise ValueError(f"not a multiply-kind payload: {k}")
+    (src_a, view_a), (src_b, view_b), upper = operand_views(payload)
+    srcs = {"a": a_leaf, "b": b_leaf}
+
+    def items(src, view):
+        leaf = srcs[src]
+        assert leaf.upper == (view == "full")   # host-library contract
+        return _full_items(leaf) if view == "full" \
+            else _plain_items(leaf, view == "T")
 
     cols: dict[int, list] = {}
-    for i, kk, key, tr in first[1]:
-        cols.setdefault(kk, []).append((i, first[0], key, tr))
+    for i, kk, key, tr in items(src_a, view_a):
+        cols.setdefault(kk, []).append((i, src_a, key, tr))
     rows: dict[int, list] = {}
-    for kk, j, key, tr in second[1]:
-        rows.setdefault(kk, []).append((j, second[0], key, tr))
+    for kk, j, key, tr in items(src_b, view_b):
+        rows.setdefault(kk, []).append((j, src_b, key, tr))
 
     pairs = []
     for kk in cols.keys() & rows.keys():
@@ -250,14 +258,13 @@ def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
                     continue        # lower triangle skipped: symmetry saving
                 pairs.append((sa, ka, tra, sb, kb, trb, (i, j)))
 
-    if payload.tau > 0.0 and k == "multiply":
+    if truncates(payload):
         # SpAMM pruning inside the leaf (DESIGN.md §5): a block pair whose
         # norm product is below tau is dropped *structurally* — both
-        # backends take their structure from this list, so pruned pairs
-        # never enter a kernel wave and never touch the host library.
+        # backends take their structure from the kept pairs, so pruned
+        # pairs never enter a kernel wave and never touch the host library.
         # Block norms are transpose-invariant: the stored key's cached
         # norm is valid for either orientation.
-        srcs = {"a": a_leaf, "b": b_leaf}
         flops_each = 2.0 * a_leaf.bs ** 3
         t0 = tracer.clock() if tracer.enabled else 0.0
         kept = []
@@ -275,6 +282,153 @@ def leaf_task_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
             tracer.add("trunc.pairs_pruned", len(pairs) - len(kept))
         pairs = kept
     return pairs, upper
+
+
+# ---------------------------------------------------------------------------
+# The same structure as integer columns (the torch backend)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LeafView:
+    """One view of a leaf's blocks (see :func:`operand_views`) as integer
+    columns.  ``mask`` is op(leaf)'s 0/1 block mask in float32.
+    ``first`` holds its blocks as a product's first operand, ``(k, i,
+    code, pos)`` of block ``(i, k)`` sorted by ``(k, i)``, and ``second``
+    as the second operand, ``(k, j, code, pos)`` of block ``(k, j)``
+    sorted by ``(k, j)``: ``code`` is ``(si * grid + sj) * 2 +
+    transpose`` of the stored block ``(si, sj)`` read and ``pos`` its
+    place in the leaf's ``blocks``."""
+    mask: np.ndarray
+    first: tuple
+    second: tuple
+
+
+def _cache(leaf: LeafMatrix) -> dict:
+    """The leaf's structure cache, started again if blocks were added or
+    removed since it was filled (values change in place, never keys)."""
+    c = leaf._views
+    if c is None or c[0] != len(leaf.blocks):
+        c = leaf._views = (len(leaf.blocks), {})
+    return c[1]
+
+
+def leaf_keys(leaf: LeafMatrix) -> np.ndarray:
+    """The leaf's stored keys coded ``i * grid + j``, in ``blocks`` order
+    (cached)."""
+    cache = _cache(leaf)
+    kc = cache.get("keys")
+    if kc is None:
+        ij = np.fromiter(itertools.chain.from_iterable(leaf.blocks),
+                         np.int64, count=2 * len(leaf.blocks))
+        kc = cache["keys"] = ij[0::2] * leaf.grid + ij[1::2]
+    return kc
+
+
+def leaf_view(leaf: LeafMatrix, view: str) -> LeafView:
+    """The leaf's :class:`LeafView` ``view`` (cached)."""
+    assert leaf.upper == (view == "full")   # host-library contract
+    cache = _cache(leaf)
+    v = cache.get(view)
+    if v is not None:
+        return v
+    kc = leaf_keys(leaf)
+    si, sj = np.divmod(kc, leaf.grid)
+    pos = np.arange(len(kc))
+    tr = np.zeros(len(kc), np.int64)
+    if view == "T":
+        i, j, tr = sj, si, tr + 1
+    elif view == "full":
+        off = pos[si != sj]
+        i = np.concatenate([si, sj[off]])
+        j = np.concatenate([sj, si[off]])
+        pos = np.concatenate([pos, off])
+        tr = np.concatenate([tr, np.ones(len(off), np.int64)])
+    else:
+        i, j = si, sj
+    code = kc[pos] * 2 + tr
+    mask = np.zeros((leaf.grid, leaf.grid), np.float32)
+    mask[i, j] = 1
+    by_col, by_row = np.lexsort((i, j)), np.lexsort((j, i))
+    v = cache[view] = LeafView(
+        mask, tuple(x[by_col] for x in (j, i, code, pos)),
+        tuple(x[by_row] for x in (i, j, code, pos)))
+    return v
+
+
+def task_views(payload: LeafPayload, a_leaf: LeafMatrix,
+               b_leaf: Optional[LeafMatrix]) -> tuple:
+    """``((leaf, LeafView), (leaf, LeafView), upper)`` of a multiply-kind
+    task's two operands (:func:`operand_views`)."""
+    srcs = {"a": a_leaf, "b": b_leaf}
+    first, second, upper = operand_views(payload)
+    return tuple((srcs[s], leaf_view(srcs[s], v))
+                 for s, v in (first, second)) + (upper,)
+
+
+def c_structure(first: LeafView, second: LeafView, upper: bool) -> tuple:
+    """``(keys, pairs)``: C's keys in row-major order and the task's pair
+    count, from the product of the operands' 0/1 masks (each C cell's
+    pair count; the upper triangle only where C is kept upper)."""
+    counts = first.mask @ second.mask
+    if upper:
+        counts = np.triu(counts)
+    rows, cols = np.nonzero(counts)
+    return (list(zip(rows.tolist(), cols.tolist())),
+            int(counts.sum(dtype=np.float64)))
+
+
+def join_items(ga: np.ndarray, gb: np.ndarray, n_groups: int) -> tuple:
+    """Row pairs ``(ra, rb)`` of two item lists whose group numbers agree,
+    each list sorted by group: ``ra`` ascending and, for each ``ra``,
+    ``rb`` ascending."""
+    cnt = np.bincount(gb, minlength=n_groups)
+    reps = cnt[ga]
+    ra = np.repeat(np.arange(len(ga)), reps)
+    first = np.cumsum(reps) - reps          # each a-row's first pair
+    rb = np.arange(len(ra)) - np.repeat(
+        first - (np.cumsum(cnt) - cnt)[ga], reps)
+    return ra, rb
+
+
+def kept_pairs(payload: LeafPayload, a_leaf: LeafMatrix,
+               b_leaf: LeafMatrix, tracer=NOOP) -> np.ndarray:
+    """A truncated multiply's kept block pairs as int64 columns ``(3,
+    P)``: C cell ``i * grid + j`` and the two operand codes (a side from
+    ``a_leaf``, b side from ``b_leaf``; :class:`LeafView`), in ascending
+    ``(k, i, j)``.  A pair is kept iff ``sqrt(|A_ik|^2 |B_kj|^2) >= tau``,
+    the float64 arithmetic of :func:`leaf_task_pairs`; the pruned pairs
+    go to ``payload.trunc`` and the tracer's ``trunc.*`` counters as
+    there, ``payload.trunc`` in that function's order of pairs, so that
+    its ``error_bound`` sums to the same bits."""
+    (la, fa), (lb, fb), _ = task_views(payload, a_leaf, b_leaf)
+    ka, i, ca, pa = fa.first
+    kb, j, cb, pb = fb.second
+    ra, rb = join_items(ka, kb, a_leaf.grid)
+    t0 = tracer.clock() if tracer.enabled else 0.0
+    bound = np.sqrt(la.block_norm2s()[pa[ra]] * lb.block_norm2s()[pb[rb]])
+    keep = bound >= payload.tau
+    if payload.trunc is not None:
+        # leaf_task_pairs' order: k as its set of shared k iterates (the
+        # set of each side's k by first block, in ``blocks`` order), then
+        # each side's blocks in ``blocks`` order (a plain or transposed
+        # view has one item a block)
+        ks = []
+        for k, p in ((ka, pa), (kb, pb)):
+            by_block = np.empty_like(k)
+            by_block[p] = k
+            ks.append(dict.fromkeys(by_block.tolist()).keys())
+        shared = ks[0] & ks[1]
+        rank = np.zeros(a_leaf.grid, np.int64)
+        rank[list(shared)] = np.arange(len(shared))
+        drop = ~keep
+        order = np.lexsort((pb[rb[drop]], pa[ra[drop]], rank[ka[ra[drop]]]))
+        payload.trunc.record_leaf_pairs(bound[drop][order],
+                                        2.0 * a_leaf.bs ** 3)
+    ra, rb = ra[keep], rb[keep]
+    if tracer.enabled:
+        tracer.add("trunc.test_s", tracer.clock() - t0)
+        tracer.add("trunc.pairs_pruned", len(keep) - len(ra))
+    return np.stack((i[ra] * a_leaf.grid + j[rb], ca[ra], cb[rb]))
 
 
 # ---------------------------------------------------------------------------
@@ -320,7 +474,7 @@ class NumpyEngine(LeafEngine):
                  ) -> tuple[LeafMatrix, bool]:
         """The numeric work of one leaf task; shared by execute/reexecute."""
         k = payload.kind
-        if k == "multiply" and payload.tau > 0.0:
+        if truncates(payload):
             # truncated path: structure (incl. SpAMM pair pruning) comes
             # from leaf_task_pairs — identical to the torch backend's —
             # and the surviving pairs are evaluated with the host library.
@@ -410,7 +564,10 @@ class _Pending:
     out: LeafMatrix
     a_leaf: LeafMatrix
     b_leaf: Optional[LeafMatrix]
-    pairs: Optional[list] = None    # multiply kinds only
+    n_pairs: int = 0                # multiply kinds: block pairs
+    # a truncated multiply's kept pairs (kept_pairs' columns); the other
+    # tasks' pairs are joined at flush (number_wave)
+    kept: Optional[np.ndarray] = None
 
 
 def resolve_device(device=None) -> torch.device:
@@ -486,9 +643,10 @@ class TorchEngine(LeafEngine):
                 "CTGraph; create one engine per graph")
 
     def execute(self, g, node, payload: LeafPayload) -> Optional[MatrixChunk]:
-        # while tracing, each leaf task's pair list and C structure add to
-        # the tracer's engine.* counters (per task: no span), timed on the
-        # tracer's clock, which leaves the collector's passes out
+        # while tracing, each leaf task's C structure (and a truncated
+        # multiply's kept-pair test) add to the tracer's engine.* counters
+        # (per task: no span), timed on the tracer's clock, which leaves
+        # the collector's passes out
         tr = g.tracer
         if not tr.enabled:
             return self._execute(g, node, payload)
@@ -549,19 +707,28 @@ class TorchEngine(LeafEngine):
             self._defer(_Pending(node.nid, payload, out, a_leaf, b_leaf))
             return MatrixChunk(av.n, leaf=out, upper=False)
 
-        pairs, upper = leaf_task_pairs(payload, a_leaf, b_leaf, g.tracer)
-        g.tracer.add("engine.pairs", len(pairs))
-        if payload.tau > 0.0:
-            # freeze the surviving pairs for Plan replay (see qt_replay):
-            # the norm test must not re-evaluate against rebound values
-            node.replay = (pairs, upper)
-        node.flops = 2.0 * len(pairs) * a_leaf.bs ** 3
-        # output occupancy in row-major slot order (the same order
-        # bsmm.compute_c_structure assigns; see validate_structure)
-        keys = sorted({p[6] for p in pairs})
+        # C's keys in row-major slot order (the same order
+        # bsmm.compute_c_structure assigns; see validate_structure) and the
+        # pair count; the pairs themselves are joined at flush
+        if truncates(payload):
+            # the kept pairs decide C: freeze them for Plan replay (see
+            # qt_replay), the norm test must not re-evaluate against
+            # rebound values
+            kept = node.replay = kept_pairs(payload, a_leaf, b_leaf,
+                                            g.tracer)
+            keys = list(zip(*(x.tolist() for x in np.divmod(
+                np.unique(kept[0]), a_leaf.grid))))
+            n_pairs, upper = kept.shape[1], False
+        else:
+            (_, first), (_, second), upper = task_views(payload, a_leaf,
+                                                        b_leaf)
+            keys, n_pairs = c_structure(first, second, upper)
+            kept = None
+        g.tracer.add("engine.pairs", n_pairs)
+        node.flops = 2.0 * n_pairs * a_leaf.bs ** 3
         if self.validate_structure:
             oracle = self._c_keys(payload, a_leaf, b_leaf, upper)
-            if payload.tau > 0.0:
+            if truncates(payload):
                 # the torch oracle evaluates the tau test in float32; allow
                 # it to disagree only on pairs within f32 rounding of the
                 # boundary by bracketing with slightly shifted taus
@@ -578,7 +745,8 @@ class TorchEngine(LeafEngine):
             return None
         out = alloc_structure(a_leaf.n, a_leaf.bs, keys, upper=upper,
                               dtype=self._out_dtype(a_leaf, b_leaf))
-        self._defer(_Pending(node.nid, payload, out, a_leaf, b_leaf, pairs))
+        self._defer(_Pending(node.nid, payload, out, a_leaf, b_leaf, n_pairs,
+                             kept))
         return MatrixChunk(av.n, leaf=out, upper=upper)
 
     @staticmethod
@@ -607,7 +775,7 @@ class TorchEngine(LeafEngine):
         from .bsmm import compute_c_structure, compute_c_structure_norms
 
         grid = a_leaf.grid
-        if payload.kind == "multiply" and payload.tau > 0.0:
+        if truncates(payload):
             na = np.zeros((grid, grid))
             nb = np.zeros((grid, grid))
             for i, k, key, _ in _plain_items(a_leaf, payload.ta):
@@ -818,8 +986,10 @@ class TorchEngine(LeafEngine):
         """Re-defer an already-executed leaf task against its existing
         output chunk; the next flush re-runs the batched waves/host fills
         in dependency order, writing the same placeholder blocks.  Counted
-        while tracing as :meth:`execute` is: replay rebuilds the pair
-        lists here."""
+        while tracing as :meth:`execute` is; the structure cannot change
+        across a rebind, so nothing about pairs is built here: an exact
+        task's are joined at flush as a fresh product's, a truncated
+        multiply's replay its frozen columns."""
         tr = g.tracer
         if not tr.enabled:
             return self._reexecute(g, node, payload)
@@ -842,17 +1012,16 @@ class TorchEngine(LeafEngine):
             self._defer(_Pending(node.nid, payload, out.leaf, a_leaf,
                                  b_leaf))
         else:
-            if payload.tau > 0.0:
-                pairs, _ = node.replay      # frozen at first execution
-            else:
-                probe = dataclasses.replace(payload, trunc=None)
-                pairs, _ = leaf_task_pairs(probe, a_leaf, b_leaf)
-            g.tracer.add("engine.pairs", len(pairs))
+            kept = node.replay              # frozen at first execution
+            # the first execution's count (node.flops is 2 bs^3 a pair)
+            n_pairs = kept.shape[1] if truncates(payload) \
+                else int(node.flops) // (2 * a_leaf.bs ** 3)
+            g.tracer.add("engine.pairs", n_pairs)
             # zero first: waves only scatter-add into surviving out slots
             for blk in out.leaf.blocks.values():
                 blk[...] = 0.0
             self._defer(_Pending(node.nid, payload, out.leaf, a_leaf,
-                                 b_leaf, pairs))
+                                 b_leaf, n_pairs, kept))
         out.norm2 = None
         out.trace = None
 
@@ -958,7 +1127,10 @@ def dispatch_solve_wave(tasks: list[_Pending], *, kind: str, n: int,
 @dataclasses.dataclass(frozen=True)
 class WaveNumbering:
     """A kernel wave's pairs as columns, a row a pair in the wave's pair
-    order (tasks in order, each task's pairs in order): its ``task``, its
+    order (tasks in order, each task's pairs in ascending ``(k, i, j)`` of
+    its products ``C_ij += A_ik B_kj``, so each C block takes its pairs in
+    task order, then ascending k, whichever tasks share the wave): its
+    ``task``, its
     C ``slot`` (task ``t`` holds ``slot_base[t]`` up to ``slot_base[t +
     1]``, in ``t.out.blocks`` order) and its operands' ``code`` (sides a,
     b), ``(leaf * grid**2 + i * grid + j) * 2 + transpose`` for block
@@ -992,51 +1164,82 @@ class WaveNumbering:
         return pack
 
 
-def number_wave(tasks: list[_Pending]) -> WaveNumbering:
-    """The wave's :class:`WaveNumbering`, read from the pair tuples in
-    C-level passes."""
+def number_wave(tasks: list[_Pending], tracer=NOOP) -> WaveNumbering:
+    """The wave's :class:`WaveNumbering`, as array work.  The pairs of the
+    tasks that froze none come from one join over the wave: each task's
+    operand blocks, from their leaves' cached :class:`LeafView`, paired
+    on ``(task, k)``, the lower triangle dropped where C is kept upper
+    (``engine.pairs_joined`` counts them).  A truncated multiply's frozen
+    columns (``kept``) join them in task order."""
     grid = tasks[0].out.grid                 # one batch_key
     cells = grid * grid
     leaves = list({id(x): x for t in tasks for x in (t.a_leaf, t.b_leaf)
                    if x is not None}.values())
     leaf_ix = {id(x): i for i, x in enumerate(leaves)}
-    # each task's leaf of side 'a' (0) and 'b' (1)
-    task_leaf = np.array([(leaf_ix[id(t.a_leaf)],
-                           leaf_ix.get(id(t.b_leaf), -1)) for t in tasks])
-    task = np.repeat(np.arange(len(tasks)), [len(t.pairs) for t in tasks])
-    pairs = list(itertools.chain.from_iterable(t.pairs for t in tasks))
-    n_pairs = len(pairs)
 
-    def field(k):
-        return map(operator.itemgetter(k), pairs)
+    # per side, each joined task's (task, code offset, columns)
+    sides: tuple = ([], [])
+    upper = np.zeros(len(tasks), bool)
+    frozen = []
+    for n, t in enumerate(tasks):
+        if t.kept is not None:
+            frozen.append(n)
+            continue
+        first, second, upper[n] = task_views(t.payload, t.a_leaf, t.b_leaf)
+        for side, (leaf, v), cols in zip(sides, (first, second),
+                                         ("first", "second")):
+            side.append((n, leaf_ix[id(leaf)] * 2 * cells,
+                         getattr(v, cols)))
 
-    def key_codes(keys, n):
-        ij = np.fromiter(itertools.chain.from_iterable(keys), np.int64,
-                         count=2 * n).reshape(n, 2)
-        return ij[:, 0] * grid + ij[:, 1]
+    def columns(parts):
+        lens = [len(p[2][0]) for p in parts]
+        task = np.repeat([p[0] for p in parts], lens)
+        k, other, code = (np.concatenate([p[2][x] for p in parts])
+                          for x in range(3))
+        return task, k, other, code + np.repeat([p[1] for p in parts], lens)
 
-    def operand_codes(k):
-        # src is 'a' or 'b': one byte a pair
-        side = np.frombuffer("".join(field(k)).encode(), np.uint8) - ord("a")
-        return (task_leaf[task, side] * cells
-                + key_codes(field(k + 1), n_pairs)) * 2 \
-            + np.fromiter(field(k + 2), bool, count=n_pairs)
+    task = np.zeros(0, np.int64)
+    cell = np.zeros(0, np.int64)
+    code = np.zeros((0, 2), np.int64)
+    if sides[0]:
+        ta, ka, i, ca = columns(sides[0])
+        tb, kb, j, cb = columns(sides[1])
+        ra, rb = join_items(ta * grid + ka, tb * grid + kb,
+                            len(tasks) * grid)
+        task, i, j = ta[ra], i[ra], j[rb]
+        keep = ~(upper[task] & (i > j))
+        task, i, j, ra, rb = task[keep], i[keep], j[keep], ra[keep], rb[keep]
+        cell = i * grid + j
+        code = np.stack([ca[ra], cb[rb]], axis=1)
+    tracer.add("engine.pairs_joined", len(task))
+    if frozen:
+        kept = [tasks[n].kept for n in frozen]
+        lens = [x.shape[1] for x in kept]
+        kept = np.concatenate(kept, axis=1)
+        offs = np.array([[leaf_ix[id(tasks[n].a_leaf)],
+                          leaf_ix[id(tasks[n].b_leaf)]]
+                         for n in frozen]) * 2 * cells
+        task = np.concatenate([task, np.repeat(frozen, lens)])
+        cell = np.concatenate([cell, kept[0]])
+        code = np.concatenate([code, kept[1:].T + np.repeat(offs, lens,
+                                                            axis=0)])
+        if len(frozen) < len(tasks):
+            order = np.argsort(task, kind="stable")
+            task, cell, code = task[order], cell[order], code[order]
 
     # C slots: each task's keys, coded with the task's number
     out_lens = [len(t.out.blocks) for t in tasks]
     slot_base = np.concatenate(([0], np.cumsum(out_lens)))
-    c_code = key_codes(itertools.chain.from_iterable(
-        t.out.blocks for t in tasks), slot_base[-1]) \
+    c_code = np.concatenate([leaf_keys(t.out) for t in tasks]) \
         + np.repeat(np.arange(len(tasks)) * cells, out_lens)
-    p_code = key_codes(field(6), n_pairs) + task * cells
+    p_code = cell + task * cells
     by_code = np.argsort(c_code)
     slot = by_code[np.minimum(np.searchsorted(c_code, p_code, sorter=by_code),
                               slot_base[-1] - 1)]
     if not np.array_equal(c_code[slot], p_code):
         raise KeyError("a block pair's output key is not in its task's "
                        "C structure")
-    return WaveNumbering(task, slot, slot_base, np.stack(
-        [operand_codes(0), operand_codes(3)], axis=1), leaves, grid)
+    return WaveNumbering(task, slot, slot_base, code, leaves, grid)
 
 
 def number_by_first(codes: np.ndarray) -> tuple:
@@ -1050,15 +1253,15 @@ def number_by_first(codes: np.ndarray) -> tuple:
     return rank[inverse], first[by_first]
 
 
-def gather_wave(tasks: list[_Pending]) -> tuple:
+def gather_wave(tasks: list[_Pending], tracer=NOOP) -> tuple:
     """Pack one kernel wave: ``(sa, sb, seg, a_pack, b_pack, n_slots)``.
 
     Each side's operands are packed *uniquely*, by first occurrence of
     their :func:`number_wave` codes.  Pair ``p`` multiplies
     ``a_pack[sa[p]] @ b_pack[sb[p]]`` into C slot ``seg[p]``.  ``seg`` is
-    ascending (a *stable* sort, so each C block keeps its pairs in task
-    order), ``sa`` and ``sb`` permuted with it, all int32."""
-    num = number_wave(tasks)
+    ascending (a *stable* sort, so each C block keeps its pairs in the
+    wave's pair order), ``sa`` and ``sb`` permuted with it, all int32."""
+    num = number_wave(tasks, tracer)
     order = np.argsort(num.slot, kind="stable")   # bsmm_pairs contract
     out = []
     for codes in num.code.T:
@@ -1080,16 +1283,17 @@ def dispatch_packed_wave(tasks: list[_Pending], bs: int, *, kernel: str,
     it to the owning engine's wave log).
 
     Numerical identity with per-engine dispatch: output slots are numbered
-    task-by-task in structure order and pairs are sorted by a *stable*
-    argsort on segment id, so every output block accumulates its products
-    in the same order regardless of which other tasks share the wave.
+    task-by-task in structure order, each task's pairs come in ascending
+    ``(k, i, j)`` and are sorted by a *stable* argsort on segment id, so
+    every output block accumulates its products in the same order
+    regardless of which other tasks share the wave.
     ``wall_s`` spans the copies to the device, the kernel and the copy
     back, and ends in a device synchronize.
     """
     from repro_torch.kernels import ops as kops
 
     with tracer.span("engine.gather", track="engine") as sp:
-        sa, sb, seg, a_pack, b_pack, n_slots = gather_wave(tasks)
+        sa, sb, seg, a_pack, b_pack, n_slots = gather_wave(tasks, tracer)
         n_pairs = len(seg)
         unique_blocks = len(a_pack) + len(b_pack)
         sp.set(pairs=n_pairs, unique_blocks=unique_blocks)

@@ -46,7 +46,8 @@ class LeafMatrix:
     """
 
     __slots__ = ("n", "bs", "blocks", "upper", "dtype",
-                 "_bnorm2", "_norm2_tot", "_trace", "_version")
+                 "_bnorm2", "_bnorm2_arr", "_norm2_tot", "_trace", "_version",
+                 "_views")
 
     def __init__(self, n: int, bs: int, blocks: Optional[dict] = None,
                  upper: bool = False, dtype=np.float64):
@@ -61,12 +62,17 @@ class LeafMatrix:
         # mutated in place (engine wave fills, deferred adds/transposes);
         # the trace cache follows the same lifecycle
         self._bnorm2: Optional[dict[tuple[int, int], float]] = None
+        self._bnorm2_arr: Optional[np.ndarray] = None
         self._norm2_tot: Optional[float] = None
         self._trace: Optional[float] = None
         # monotone mutation counter: bumped with every cache
         # invalidation so device-resident copies of this leaf's blocks
         # (mesh engine) can detect staleness without hashing values
         self._version = 0
+        # the engine's structure columns of this leaf (core/engine.py
+        # ``leaf_view``), built on first use: the block structure is fixed
+        # once built, and values change in place
+        self._views = None
 
     # -- construction -------------------------------------------------------
     @classmethod
@@ -141,6 +147,15 @@ class LeafMatrix:
             self._bnorm2[key] = v
         return v
 
+    def block_norm2s(self) -> np.ndarray:
+        """:meth:`block_norm2` of every stored block, in ``blocks`` order,
+        as one float64 array, cached with the norms."""
+        if self._bnorm2_arr is None:
+            self._bnorm2_arr = np.fromiter(
+                map(self.block_norm2, self.blocks), np.float64,
+                count=len(self.blocks))
+        return self._bnorm2_arr
+
     def norm2(self) -> float:
         """Squared Frobenius norm of the *stored* blocks, cached.
 
@@ -168,6 +183,7 @@ class LeafMatrix:
     def invalidate_norms(self) -> None:
         """Drop norm/trace caches after in-place mutation of block data."""
         self._bnorm2 = None
+        self._bnorm2_arr = None
         self._norm2_tot = None
         self._trace = None
         self._version += 1

@@ -32,6 +32,8 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
+
 from .engine import LeafPayload
 from .quadtree import MatrixChunk, QTParams, _norm2
 from .tasks import Alias, CTGraph, Dep
@@ -105,6 +107,15 @@ class TruncationReport:
         self.error_bound += bound
         self.pruned_leaf_pairs += 1
         self.pruned_flops += flops
+
+    def record_leaf_pairs(self, bounds: np.ndarray, flops: float) -> None:
+        """:meth:`record_leaf_pair` for each of ``bounds`` (float64) in
+        turn, in one call: the same sums in the same order (a cumulative
+        sum adds one element after another)."""
+        self.error_bound = float(np.cumsum(np.concatenate(
+            ([self.error_bound], bounds)))[-1])
+        self.pruned_leaf_pairs += len(bounds)
+        self.pruned_flops += flops * len(bounds)
 
     def to_dict(self) -> dict:
         return {

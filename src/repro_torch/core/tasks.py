@@ -69,7 +69,8 @@ class Node:
     payload: Any = None             # batchable leaf-op description (engine.py)
     # structural decisions frozen at first execution so a Plan replay
     # (api/plan.py) re-runs the *same* program: today this is the
-    # surviving block-pair list of a truncated leaf multiply, whose
+    # kept block pairs of a truncated leaf multiply (the torch engine's
+    # columns, the numpy engine's tuples), whose
     # norm test would otherwise re-evaluate against the rebound values;
     # CTGraph.drop_values lets go of it with the value
     replay: Any = None

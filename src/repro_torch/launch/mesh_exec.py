@@ -244,7 +244,7 @@ class MeshEngine(TorchEngine):
         t0 = time.perf_counter()
         nt = len(tasks)
         owners = ((np.arange(nt, dtype=np.int64) + 1) * n_dev - 1) // nt
-        num = number_wave(tasks)
+        num = number_wave(tasks, self.tracer)
         plan = plan_wave(num, owners, self._owner, n_dev, me)
         self._owner.update(plan.leaf_homes)
         self._owner.update(zip((id(t.out) for t in tasks), owners.tolist()))

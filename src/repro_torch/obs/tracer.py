@@ -29,10 +29,14 @@ taxonomy threaded through the port, by layer::
 
 ``Tracer.counters`` holds running totals beside the spans, for work too
 fine-grained for a span of its own: ``engine.leaf_tasks``,
-``engine.pairs`` and ``engine.pairs_s`` (the pair list and C structure
-of each leaf task, host fills' structures included, at registration and
-at replay: ``TorchEngine.execute`` and ``reexecute``, timed on
-:meth:`Tracer.clock`, which leaves the collector out), a truncated
+``engine.pairs`` and ``engine.pairs_s`` (the C structure and pair count
+of each leaf task, host fills' structures included, and a truncated
+multiply's kept-pair test, at registration and at replay:
+``TorchEngine.execute`` and ``reexecute``, timed on :meth:`Tracer.clock`,
+which leaves the collector out; no pair is enumerated there),
+``engine.pairs_joined`` (the block pairs the flush's wave-wide join
+enumerates: ``engine.pairs`` less a truncated
+multiply's frozen pairs), a truncated
 multiply's ``trunc.pairs_pruned`` (block pairs its leaf tasks drop),
 ``trunc.subtrees_pruned`` (recursive products it drops, any level) and
 ``trunc.test_s`` (its leaf tasks' norm tests, on the same clock), and

@@ -123,7 +123,7 @@ class WaveCoalescer:
         # to (approximately) the merged wave
         total_pairs = max(record["pairs"], 1)
         for eng, tasks in parts:
-            pe_pairs = sum(len(t.pairs) for t in tasks)
+            pe_pairs = sum(t.n_pairs for t in tasks)
             share = pe_pairs / total_pairs
             eng.commit_tasks(tasks, wave_record={
                 "kernel": kernel, "bs": bs, "tasks": len(tasks),

@@ -1,5 +1,6 @@
 """The wave gather (``core/engine.py::gather_wave``) against the per-pair
-loop it replaced, kept here as the oracle.
+loop it replaced, kept here as the oracle, over the pairs of the host
+reference enumerator (``leaf_task_pairs``) in the wave's documented order.
 
 Every kernel wave of each case is packed both ways: ``sa``, ``sb``,
 ``seg``, ``a_pack`` and ``b_pack`` must be byte-equal and ``n_slots``
@@ -8,6 +9,8 @@ place, and its wave records and C must be equal to those of the run
 through ``gather_wave``.  Tiny patterns on the CPU engine (the kernels'
 plain versions); nothing here needs a card.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -24,14 +27,25 @@ N, LEAF_N, BS = 128, 32, 4
 GATHER = t_engine.gather_wave
 
 
-def _loop_gather(tasks):
+def task_pairs(t):
+    """A wave task's block pairs from the host reference enumerator, one
+    tuple a pair, in the order the wave takes them: ascending ``(k, i,
+    j)`` of ``C_ij += op(A)_ik op(B)_kj``."""
+    probe = dataclasses.replace(t.payload, trunc=None)
+    pairs, _ = t_engine.leaf_task_pairs(probe, t.a_leaf, t.b_leaf)
+    return sorted(pairs, key=lambda p: (p[1][0] if p[2] else p[1][1],
+                                        *p[6]))
+
+
+def _loop_gather(tasks, tracer=None):
     """The per-pair gather the engine ran before ``gather_wave``."""
     slot_base = []
     n_slots = 0
     for t in tasks:
         slot_base.append(n_slots)
         n_slots += len(t.out.blocks)
-    n_pairs = sum(len(t.pairs) for t in tasks)
+    pairs = [task_pairs(t) for t in tasks]
+    n_pairs = sum(map(len, pairs))
     a_slots, b_slots, a_list, b_list = {}, {}, [], []
 
     def slot_of(slots, lst, leaf, key, tr):
@@ -48,10 +62,10 @@ def _loop_gather(tasks):
     sb = np.empty((n_pairs,), np.int32)
     seg = np.empty((n_pairs,), np.int32)
     p = 0
-    for base, t in zip(slot_base, tasks):
+    for base, t, t_pairs in zip(slot_base, tasks, pairs):
         key_slot = {key: base + i for i, key in enumerate(t.out.blocks)}
         srcs = {"a": t.a_leaf, "b": t.b_leaf}
-        for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
+        for src_a, ka, tra, src_b, kb, trb, out_key in t_pairs:
             sa[p] = slot_of(a_slots, a_list, srcs[src_a], ka, tra)
             sb[p] = slot_of(b_slots, b_list, srcs[src_b], kb, trb)
             seg[p] = key_slot[out_key]
@@ -155,7 +169,7 @@ def _run(monkeypatch, case, gather):
 def test_gather_equals_the_per_pair_loop(monkeypatch, case):
     packed = []
 
-    def checked(tasks):
+    def checked(tasks, tracer=None):
         got, want = GATHER(tasks), _loop_gather(tasks)
         for g, w in zip(got[:5], want[:5]):
             assert g.flags.c_contiguous

@@ -43,6 +43,7 @@ from repro_torch.launch import mesh_exec  # noqa: E402
 from repro_torch.launch.mesh_exec import MeshEngine  # noqa: E402
 from test_torch_distributed import P4, ROOT, SCRIPT, run_ranks  # noqa: E402
 from test_torch_gather import CASES as GATHER_CASES  # noqa: E402
+from test_torch_gather import task_pairs  # noqa: E402
 
 N, LEAF_N, BS = 64, 16, 4
 TOL = dict(atol=1e-4)          # mesh packs float32; numpy is float64
@@ -161,7 +162,7 @@ def _loop_plan(tasks, owners, owner_map, n_dev, me):
     for t, dev in zip(tasks, owners.tolist()):
         owner_map[id(t.out)] = dev
         srcs = {"a": t.a_leaf, "b": t.b_leaf}
-        for src_a, ka, tra, src_b, kb, trb, _ in t.pairs:
+        for src_a, ka, tra, src_b, kb, trb, _ in task_pairs(t):
             for src, kk, tr in ((src_a, ka, tra), (src_b, kb, trb)):
                 leaf = srcs[src]
                 sk = (id(leaf), kk, tr)
@@ -222,12 +223,13 @@ def _loop_plan(tasks, owners, owner_map, n_dev, me):
     cap_c = max(1, max(n_out))
     my_pairs, n_pairs = [], [0] * n_dev
     for t, dev, base in zip(tasks, owners.tolist(), out_base):
-        n_pairs[dev] += len(t.pairs)
+        t_pairs = task_pairs(t)
+        n_pairs[dev] += len(t_pairs)
         if dev != me:
             continue
         key_slot = {key: base + i for i, key in enumerate(t.out.blocks)}
         srcs = {"a": t.a_leaf, "b": t.b_leaf}
-        for src_a, ka, tra, src_b, kb, trb, out_key in t.pairs:
+        for src_a, ka, tra, src_b, kb, trb, out_key in t_pairs:
             my_pairs.append((pos_on(me, (id(srcs[src_a]), ka, tra)),
                              pos_on(me, (id(srcs[src_b]), kb, trb)),
                              key_slot[out_key]))
@@ -295,7 +297,7 @@ class TestPlanner:
         owner_maps = {n: {} for n in (1, 2, 4, 8)}
         waves = []
 
-        def checked(tasks):
+        def checked(tasks, tracer=None):
             num = mesh_exec.number_wave(tasks)
             nt = len(tasks)
             for n_dev, owner_map in owner_maps.items():

@@ -116,6 +116,27 @@ def test_truncated_square_matches_the_plain_reference(where):
 
 
 @pytest.mark.parametrize("where", list(TAUS))
+def test_truncation_report_equals_the_tuple_paths(where):
+    """The report of the column path against that of the host reference
+    enumerator's one tuple a pair (the numpy engine's truncated path):
+    the same counts and flops, and ``error_bound`` to the bit (within
+    1e-12 relative, float64 summation's rounding, at the least)."""
+    tau = TAUS[where]
+    a = _decaying(8)
+    got = _session().from_dense(a)
+    got = got.multiply(got, tau=tau).truncation
+    ref = repro_torch.Session(engine="numpy", leaf_n=LEAF_N, bs=BS)
+    ref = ref.from_dense(a)
+    ref = ref.multiply(ref, tau=tau).truncation
+    assert got.pruned_leaf_pairs == ref.pruned_leaf_pairs > 0
+    assert got.pruned_subtrees == ref.pruned_subtrees
+    assert got.pruned_by_level == ref.pruned_by_level
+    assert got.pruned_flops == ref.pruned_flops
+    assert got.error_bound == pytest.approx(ref.error_bound, rel=1e-12, abs=0)
+    assert got.error_bound == ref.error_bound
+
+
+@pytest.mark.parametrize("where", list(TAUS))
 def test_trunc_counters_equal_the_truncation_report(where):
     tau = TAUS[where]
     a = _decaying(2)
